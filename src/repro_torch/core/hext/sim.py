@@ -1,0 +1,407 @@
+"""Typed simulation API of the port: ``HartState`` + ``Fleet`` —
+counterpart of ``repro.core.hext.sim``.
+
+* ``HartState`` — a dataclass of tensors with a leading hart dimension B
+  (pc/regs/csrs/mem/tlb and a nested :class:`Counters` record).
+  ``to_raw``/``from_raw`` bridge to the raw dict ``machine`` computes on;
+  ``from_numpy``/``to_numpy`` carry state across from and to the JAX
+  package's raw-dict layout (numpy arrays, uint64 leaves), which is how
+  one state is put through both packages.
+* ``Fleet`` — ``Fleet.boot(workloads, guest=...)`` assembles system
+  images and batches them, ``fleet.run(max_ticks)`` advances every
+  machine in lockstep, ``fleet.counters()`` / ``fleet.report()`` read the
+  paper's counters back out.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(:func:`repro_torch.device.resolve`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.hext import machine as _machine
+from repro_torch.core.hext import programs
+from repro_torch.core.hext.engine import TorchEngine
+from repro_torch.device import resolve
+
+MASK64 = (1 << 64) - 1
+
+__all__ = ["Counters", "HartState", "Fleet", "HartSpec", "checksum_ok"]
+
+
+def checksum_ok(exit_code, golden: int) -> bool:
+    """Canonical result check: compare exit code and golden mod 2**64."""
+    return (int(exit_code) & MASK64) == (int(golden) & MASK64)
+
+
+_COUNTER_KEYS = ("done", "exit_code", "instret", "instret_virt",
+                 "exc_by_level", "int_by_level", "pagefaults", "walks",
+                 "ticks", "timer_irqs", "ctx_switches")
+_STATE_KEYS = ("pc", "regs", "csrs", "priv", "virt", "mem", "halted",
+               "console")
+
+# the reference's raw-dict dtypes (everything is int64 or bool here)
+_U64_KEYS = ("pc", "regs", "csrs", "mem", "exit_code")
+_I32_KEYS = ("priv",)
+_TLB_U64 = ("vpn", "ppn")
+_TLB_I32 = ("level", "perm", "priv", "ptr")
+
+
+@dataclasses.dataclass(frozen=True)
+class Counters:
+    """Architectural counters + run outcome (one hart, or a batch).
+
+    instret / instret_virt — Fig 5 (instructions w/ and w/o VM)
+    exc_by_level[3] / int_by_level[3] — Figs 6/7 (M, HS, VS)
+    pagefaults, walks — translation activity; ticks — Fig 4 time proxy
+    timer_irqs / ctx_switches — preemption activity
+    done / exit_code — run outcome (checksum mailbox)
+    """
+
+    done: torch.Tensor
+    exit_code: torch.Tensor
+    instret: torch.Tensor
+    instret_virt: torch.Tensor
+    exc_by_level: torch.Tensor
+    int_by_level: torch.Tensor
+    pagefaults: torch.Tensor
+    walks: torch.Tensor
+    ticks: torch.Tensor
+    timer_irqs: torch.Tensor
+    ctx_switches: torch.Tensor
+
+    def ok(self, golden: int) -> bool:
+        return checksum_ok(self.exit_code, golden)
+
+    def to_dict(self, golden: Optional[int] = None) -> Dict[str, Any]:
+        """Host-side dict (JSON-safe) — the benchmark record shape of
+        ``benchmarks/results/hext_runs.json``."""
+        out = {
+            "done": bool(self.done),
+            "exit_code": int(self.exit_code) & MASK64,
+            "instret": int(self.instret),
+            "instret_virt": int(self.instret_virt),
+            "ticks": int(self.ticks),
+            "exc_by_level": [int(x) for x in self.exc_by_level],
+            "int_by_level": [int(x) for x in self.int_by_level],
+            "pagefaults": int(self.pagefaults),
+            "walks": int(self.walks),
+            "timer_irqs": int(self.timer_irqs),
+            "ctx_switches": int(self.ctx_switches),
+        }
+        if golden is not None:
+            out["ok"] = self.ok(golden)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HartState:
+    """Full architectural state of a batch of harts (leading dim B).
+
+    ``tlb`` is the software-TLB dict (see ``tlb.init_tlb``); ``counters``
+    is the nested :class:`Counters` record."""
+
+    pc: torch.Tensor
+    regs: torch.Tensor
+    csrs: torch.Tensor
+    priv: torch.Tensor
+    virt: torch.Tensor
+    mem: torch.Tensor
+    tlb: Dict[str, torch.Tensor]
+    halted: torch.Tensor
+    console: torch.Tensor
+    counters: Counters
+
+    # -- construction -------------------------------------------------------
+    @classmethod
+    def fresh(cls, mem_words: int = _machine.DEFAULT_MEM_WORDS,
+              batch: int = 1, device=None) -> "HartState":
+        """Power-on state: pc=0, M mode, zeroed memory and counters."""
+        return cls.from_raw(_machine._make_state(mem_words, batch,
+                                                 resolve(device)))
+
+    @classmethod
+    def boot(cls, workload, guest: bool = False, device=None) -> "HartState":
+        """One hart with the full bootable system image for ``workload``
+        (native M→S stack, or M→HS xvisor-lite→VS when ``guest``)."""
+        image = programs.build_image(workload, guest)
+        return cls.fresh(programs.MEM_WORDS, device=device).with_mem(image)
+
+    @classmethod
+    def boot_preemptive(cls, *workloads, timeslice: Optional[int] = None,
+                        device=None) -> "HartState":
+        """One hart running N guest VMs under the preemptive HS scheduler
+        (memory sized per N by ``programs.sched_layout``)."""
+        ts = programs.DEFAULT_TIMESLICE if timeslice is None else \
+            int(timeslice)
+        image = programs.build_image_nguest(workloads, timeslice=ts)
+        return cls.fresh(int(image.shape[0]), device=device).with_mem(image)
+
+    @classmethod
+    def stack(cls, states: Sequence["HartState"]) -> "HartState":
+        """Concatenate batches along the hart dimension."""
+        if not states:
+            raise ValueError("need at least one hart state")
+        raws = [s.to_raw() for s in states]
+
+        def cat(key, sub=None):
+            return torch.cat([r[key] if sub is None else r[key][sub]
+                              for r in raws])
+
+        raw = {k: cat(k) for k in raws[0] if k != "tlb"}
+        raw["tlb"] = {k: cat("tlb", k) for k in raws[0]["tlb"]}
+        return cls.from_raw(raw)
+
+    # -- raw-dict bridge ------------------------------------------------------
+    @classmethod
+    def from_raw(cls, raw) -> "HartState":
+        return cls(**{k: raw[k] for k in _STATE_KEYS}, tlb=raw["tlb"],
+                   counters=Counters(**{k: raw[k] for k in _COUNTER_KEYS}))
+
+    def to_raw(self) -> Dict[str, Any]:
+        raw = {k: getattr(self, k) for k in _STATE_KEYS}
+        raw["tlb"] = self.tlb
+        raw.update({k: getattr(self.counters, k) for k in _COUNTER_KEYS})
+        return raw
+
+    # -- carrying state across from/to the reference's raw-dict layout ------
+    @classmethod
+    def from_numpy(cls, raw: Dict[str, Any], device=None) -> "HartState":
+        """Build from the JAX package's raw-dict layout (``machine.
+        _make_state`` keys, numpy arrays; uint64 leaves are read as their
+        int64 bit patterns).  A leading hart dimension is added when the
+        dict holds a single hart (``pc`` is 0-d)."""
+        dev = resolve(device)
+        single = np.ndim(raw["pc"]) == 0
+
+        def conv(x):
+            a = np.asarray(x)
+            if a.dtype == np.uint64:
+                a = a.view(np.int64)
+            elif a.dtype != np.bool_:
+                a = a.astype(np.int64)
+            if single:
+                a = a[None]
+            # a copy: the source (e.g. a JAX array's view) may be read-only
+            return torch.as_tensor(np.array(a), device=dev)
+
+        out = {k: conv(v) for k, v in raw.items() if k != "tlb"}
+        out["tlb"] = {k: conv(v) for k, v in raw["tlb"].items()}
+        return cls.from_raw(out)
+
+    def to_numpy(self) -> Dict[str, Any]:
+        """The reference's raw-dict layout as numpy arrays with its dtypes
+        (uint64 / int32 / bool / int64), keeping the hart dimension."""
+        def conv(t, key_u64, key_i32):
+            a = t.detach().cpu().numpy()
+            if key_u64:
+                return a.view(np.uint64)
+            if key_i32:
+                return a.astype(np.int32)
+            return a
+
+        raw = self.to_raw()
+        out = {k: conv(v, k in _U64_KEYS, k in _I32_KEYS)
+               for k, v in raw.items() if k != "tlb"}
+        out["tlb"] = {k: conv(v, k in _TLB_U64, k in _TLB_I32)
+                      for k, v in raw["tlb"].items()}
+        return out
+
+    # -- functional updates ---------------------------------------------------
+    def replace(self, **kw) -> "HartState":
+        return dataclasses.replace(self, **kw)
+
+    def with_mem(self, mem) -> "HartState":
+        """Replace memory with a uint64-word image ((W,) for every hart or
+        (B, W))."""
+        img = torch.as_tensor(np.ascontiguousarray(mem).view(np.int64),
+                              device=self.mem.device)
+        return self.replace(mem=img.expand(self.batch, -1).clone())
+
+    @property
+    def batch(self) -> int:
+        return int(self.pc.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.pc.device
+
+    def step(self) -> "HartState":
+        """One tick of the whole batch."""
+        return HartState.from_raw(_machine.step_batched(self.to_raw()))
+
+
+# ---------------------------------------------------------------------------
+# Fleet — the simulation facade
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HartSpec:
+    """What one fleet slot is running (for labels and golden checks).
+
+    A preemptive slot carries the full guest tuple in ``guests`` (N ≥ 1;
+    ``workload`` aliases guest 0) and the scheduler timeslice."""
+    workload: Optional[Any]
+    guest: bool
+    name: str
+    guests: Optional[tuple] = None
+    timeslice: int = 0
+
+    @property
+    def preemptive(self) -> bool:
+        return self.guests is not None
+
+    @property
+    def label(self) -> str:
+        if self.preemptive:
+            return f"{self.name}/{len(self.guests)}guest-preempt"
+        return f"{self.name}/{'guest' if self.guest else 'native'}"
+
+
+class Fleet:
+    """A batch of harts simulated in lockstep on one device.
+
+    >>> fleet = Fleet.boot(programs.WORKLOADS, guest=False)
+    >>> fleet.run(30_000)
+    >>> fleet.report()["crc32/native"]["ok"]
+    True
+    """
+
+    def __init__(self, harts: HartState, specs: Sequence[HartSpec]):
+        if harts.batch != len(specs):
+            raise ValueError(f"{len(specs)} specs for {harts.batch} harts")
+        self._harts = harts
+        self._specs = list(specs)
+        self._engine = TorchEngine()
+
+    @classmethod
+    def boot(cls, workloads, guest: Union[bool, Sequence[bool]] = False,
+             guests_per_hart: int = 1, timeslice: Optional[int] = None,
+             device=None) -> "Fleet":
+        """Assemble + batch bootable machines, one per workload.
+
+        ``guest`` is a bool applied fleet-wide or a per-slot sequence.
+        ``guests_per_hart=N`` (N ≥ 2, or N=1 with an explicit
+        ``timeslice``) boots the preemptive multi-guest images: each slot
+        runs N guest VMs under the HS scheduler; a slot entry is a single
+        workload (all N guests run it) or a length-N tuple.  ``device``
+        defaults to ``cuda``."""
+        dev = resolve(device)
+        wls = list(workloads) if isinstance(workloads, (list, tuple)) \
+            else [workloads]
+        n = int(guests_per_hart)
+        if n < 1:
+            raise ValueError(f"guests_per_hart must be >= 1, got {n}")
+        if n >= 2 or timeslice is not None:
+            if guest is not False:
+                raise ValueError(
+                    "guest= does not apply with a preemptive boot "
+                    "(every slot runs VS guests under the scheduler)")
+            ts = programs.DEFAULT_TIMESLICE if timeslice is None else \
+                int(timeslice)
+            groups = []
+            for i, w in enumerate(wls):
+                grp = tuple(w) if isinstance(w, (tuple, list)) else (w,) * n
+                if len(grp) != n:
+                    raise ValueError(
+                        f"slot {i}: expected a workload or a length-{n} "
+                        f"tuple, got {len(grp)} entries")
+                groups.append(grp)
+            specs = [HartSpec(g[0], True,
+                              "+".join(w.name if w is not None else "~"
+                                       for w in g),
+                              guests=g, timeslice=ts) for g in groups]
+            states = [HartState.boot_preemptive(*g, timeslice=ts, device=dev)
+                      for g in groups]
+            return cls(HartState.stack(states), specs)
+        guests = list(guest) if isinstance(guest, (list, tuple)) \
+            else [bool(guest)] * len(wls)
+        if len(guests) != len(wls):
+            raise ValueError(
+                f"guest has {len(guests)} entries for {len(wls)} workloads")
+        specs = [HartSpec(w, g, w.name) for w, g in zip(wls, guests)]
+        states = [HartState.boot(w, guest=g, device=dev)
+                  for w, g in zip(wls, guests)]
+        return cls(HartState.stack(states), specs)
+
+    # -- running --------------------------------------------------------------
+    def run(self, max_ticks: int, chunk: int = 256) -> "Fleet":
+        """Advance the whole fleet until every hart is done or the tick
+        budget (rounded up to whole chunks) is spent."""
+        self._harts = self._engine.run(self._harts, max_ticks, chunk=chunk)
+        return self
+
+    # -- introspection --------------------------------------------------------
+    @property
+    def harts(self) -> HartState:
+        return self._harts
+
+    @property
+    def specs(self) -> List[HartSpec]:
+        return list(self._specs)
+
+    @property
+    def all_done(self) -> bool:
+        return bool(self._harts.counters.done.all())
+
+    def __len__(self) -> int:
+        return len(self._specs)
+
+    def counters(self) -> List[Counters]:
+        """Per-hart :class:`Counters` on the host, in fleet order (one
+        device→host copy for the whole batch)."""
+        host = {k: getattr(self._harts.counters, k).cpu()
+                for k in _COUNTER_KEYS}
+        return [Counters(**{k: v[i] for k, v in host.items()})
+                for i in range(len(self))]
+
+    def _preempt_entry(self, i: int, spec: HartSpec,
+                       c: Counters) -> Dict[str, Any]:
+        """Report entry for an N-guest slot: per-guest checksum mailboxes
+        are read straight from the hart's memory."""
+        n = len(spec.guests)
+        res_w = programs.sched_layout(n).guest_res // 8
+        cks = [int(x) & MASK64
+               for x in self._harts.mem[i, res_w:res_w + n].cpu()]
+        goldens = [None if w is None else int(w.golden()) & MASK64
+                   for w in spec.guests]
+        oks = [None if g is None else ck == g
+               for ck, g in zip(cks, goldens)]
+        total = sum(g for g in goldens if g is not None) & MASK64
+        entry = c.to_dict()
+        entry.update({
+            "golden": total,
+            "guests": n,
+            "checksums": cks,
+            "ok_guests": oks,
+            "ok": bool(c.done) and all(o for o in oks if o is not None)
+            and c.ok(total),
+            "timeslice": spec.timeslice,
+        })
+        if n == 2:       # legacy 2-guest report keys
+            entry.update({"checksum_a": cks[0], "checksum_b": cks[1],
+                          "ok_a": oks[0], "ok_b": oks[1]})
+        return entry
+
+    def report(self) -> Dict[str, Dict[str, Any]]:
+        """``{label: counter-dict}`` with golden checks where known.
+        Duplicate labels get a ``#<slot>`` suffix."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for i, (spec, c) in enumerate(zip(self._specs, self.counters())):
+            if spec.preemptive:
+                entry = self._preempt_entry(i, spec, c)
+            else:
+                golden = spec.workload.golden() if spec.workload is not None \
+                    else None
+                entry = c.to_dict(golden)
+                if golden is not None:
+                    entry["golden"] = int(golden) & MASK64
+            label = spec.label
+            if label in out:
+                label = f"{label}#{i}"
+            out[label] = entry
+        return out

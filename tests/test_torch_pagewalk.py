@@ -1,0 +1,99 @@
+"""The port's two-stage table walk against the JAX package's.
+
+On the CPU the entry point runs the plain version (``ref.py``); the CUDA
+kernel is held against it on the card by ``chip_smoke.py`` and by
+``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.pagewalk.ops import two_stage_translate as jax_translate
+from repro_torch.kernels.pagewalk import kernel as K
+from repro_torch.kernels.pagewalk import ops
+
+
+def _random_tables(rng, T=3, R=4, P=16, G=32, slots=40):
+    vs = rng.integers(-1, G, size=(T, R, P)).astype(np.int32)
+    perm = rng.integers(0, 4, size=(T, R, P)).astype(np.int32)
+    g = rng.integers(-1, slots, size=(T, G)).astype(np.int32)
+    return vs, perm, g
+
+
+def _queries(rng, B, T=3, R=4, P=16):
+    return (rng.integers(0, T, B).astype(np.int32),
+            rng.integers(0, R, B).astype(np.int32),
+            rng.integers(0, P, B).astype(np.int32),
+            rng.integers(0, 2, B).astype(bool))
+
+
+@pytest.mark.parametrize("force", ["ref", "interpret"])
+@pytest.mark.parametrize("B", [1, 7, 512, 513])
+def test_ref_matches_jax(B, force):
+    rng = np.random.default_rng(B)
+    tables = _random_tables(rng)
+    q = _queries(rng, B)
+    want = jax_translate(*tables, *q, force=force)
+    got = ops.two_stage_translate(*tables, *q, device="cpu")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fault_iff_any_stage_invalid(seed):
+    rng = np.random.default_rng(seed)
+    vs, perm, g = _random_tables(rng)
+    t, r, p, w = _queries(rng, 64)
+    slot, fault, stage = ops.two_stage_translate(vs, perm, g, t, r, p, w,
+                                                 device="cpu")
+    for i in range(64):
+        tp = vs[t[i], r[i], p[i]]
+        want = 2 if w[i] else 1
+        s1_bad = tp < 0 or (perm[t[i], r[i], p[i]] & want) == 0
+        s2_bad = (not s1_bad) and g[t[i], tp] < 0
+        assert bool(fault[i]) == (s1_bad or s2_bad)
+        assert int(stage[i]) == (1 if s1_bad else 2 if s2_bad else 0)
+        assert int(slot[i]) == (-1 if fault[i] else g[t[i], tp])
+
+
+def test_want_write_defaults_to_read():
+    rng = np.random.default_rng(3)
+    tables = _random_tables(rng)
+    t, r, p, _ = _queries(rng, 33)
+    a = ops.two_stage_translate(*tables, t, r, p, device="cpu")
+    b = ops.two_stage_translate(*tables, t, r, p, np.zeros(33, bool),
+                                device="cpu")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    rng = np.random.default_rng(4)
+    tables = _random_tables(rng)
+    q = _queries(rng, 100)
+    before = K.two_stage_translate_kernel.launches
+    ops.two_stage_translate(*tables, *q, device="cpu")
+    ops.two_stage_translate(*tables, *q, force="ref", device="cpu")
+    assert K.two_stage_translate_kernel.launches == before
+
+
+def test_force_kernel_on_cpu_raises():
+    rng = np.random.default_rng(5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.two_stage_translate(*_random_tables(rng), *_queries(rng, 8),
+                                force="kernel", device="cpu")
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    rng = np.random.default_rng(6)
+    args = [torch.as_tensor(x) for x in _random_tables(rng) +
+            _queries(rng, 8)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.two_stage_translate_kernel(*args)
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(7)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.two_stage_translate(*_random_tables(rng), *_queries(rng, 8))

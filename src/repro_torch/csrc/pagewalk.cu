@@ -18,10 +18,11 @@
 // entry once) over the 3.35 TB/s of device memory.
 //
 // Design: one thread per query, a plain grid-stride-free launch of
-// ceil(B / 256) blocks.  Every flat index is clamped inside its table, so
-// no input can read out of bounds (coordinates are meant to be in range;
-// an out-of-range one is clamped, and tp >= G reads g_table[t, G-1] as the
-// reference's clamped gather does).
+// ceil(B / 256) blocks.  Every coordinate is read as a JAX gather reads
+// it: a negative one wraps once (i + n), then it is clamped into
+// [0, n - 1].  So no input can read out of bounds, and the kernel agrees
+// with the reference on out-of-range coordinates too (tp >= G reads
+// g_table[t, G-1], tenant -1 reads the last tenant).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -31,8 +32,11 @@ constexpr int kPermR = 1;
 constexpr int kPermW = 2;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int clamp_index(int v, int hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
+// JAX's gather rule for index v into a dimension of size n: wrap a
+// negative index once, then clamp into [0, n - 1].
+__device__ __forceinline__ int gather_index(int v, int n) {
+  const int w = v < 0 ? v + n : v;
+  return w < 0 ? 0 : (w >= n ? n - 1 : w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -49,16 +53,16 @@ pagewalk_kernel(const int32_t* __restrict__ vs_table,
                 int B, int T, int R, int P, int G) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= B) return;
-  const int t = clamp_index(tenant[i], T - 1);
-  const int r = clamp_index(req[i], R - 1);
-  const int p = clamp_index(page[i], P - 1);
+  const int t = gather_index(tenant[i], T);
+  const int r = gather_index(req[i], R);
+  const int p = gather_index(page[i], P);
   const int64_t flat1 = (static_cast<int64_t>(t) * R + r) * P + p;
   const int tp = __ldg(vs_table + flat1);
   const int perm = __ldg(vs_perm + flat1);
   const int want = want_write[i] ? kPermW : kPermR;
   const bool s1 = (tp < 0) || ((perm & want) == 0);
-  const int slot =
-      __ldg(g_table + static_cast<int64_t>(t) * G + clamp_index(tp, G - 1));
+  const int slot = __ldg(g_table + static_cast<int64_t>(t) * G +
+                         gather_index(tp < 0 ? 0 : tp, G));
   const bool s2 = !s1 && (slot < 0);
   const bool fault = s1 || s2;
   slot_out[i] = fault ? -1 : slot;

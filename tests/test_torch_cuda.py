@@ -3,7 +3,8 @@
 The CPU path of every function is held against the JAX package by the
 other ``test_torch_*`` files; these hold the card against the CPU on the
 same seeded inputs (integer semantics of shifts, wrap-around and division
-on CUDA), and the CUDA ``pagewalk`` kernel against its plain version.
+on CUDA), and the CUDA ``pagewalk`` and ``paged_attention`` kernels against
+their plain versions.
 This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -21,6 +22,11 @@ from repro_torch.core.hext import tlb as T
 from repro_torch.core.hext import translate as X
 from repro_torch.core.hext import trap as TR
 from repro_torch.core.hext.sim import Fleet
+from repro_torch.core.vmem import kvcache as KC
+from repro_torch.core.vmem import page_table as PT
+from repro_torch.kernels.paged_attention import kernel as PAK
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.pagewalk import kernel as K
 from repro_torch.kernels.pagewalk import ops
 from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
@@ -185,3 +191,131 @@ def test_force_ref_on_card_raises(cuda):
     with pytest.raises(ValueError, match="CPU path"):
         ops.two_stage_translate(z, z, z[0], q, q, q, force="ref",
                                 device=cuda)
+
+
+def test_pagewalk_kernel_out_of_range_coordinates(cuda):
+    """Negative coordinates wrap once, then everything is clamped, as in
+    the plain version (and a JAX gather); (-1, 0, -1) included."""
+    rng = np.random.default_rng(99)
+    T_, R, P, G = 3, 4, 5, 6
+    tables = [torch.as_tensor(x, device=cuda) for x in (
+        rng.integers(-1, G + 2, (T_, R, P), dtype=np.int32),
+        rng.integers(0, 4, (T_, R, P), dtype=np.int32),
+        rng.integers(-1, 9, (T_, G), dtype=np.int32))]
+    coords = [rng.integers(-2 * n, 2 * n, 4096).astype(np.int32)
+              for n in (T_, R, P)]
+    for c, v in zip(coords, (-1, 0, -1)):
+        c[0] = v
+    q = [torch.as_tensor(x, device=cuda) for x in coords] + [
+        torch.as_tensor(rng.integers(0, 2, 4096).astype(bool), device=cuda)]
+    got = K.two_stage_translate_kernel(*tables, *q)
+    for x, y in zip(got, two_stage_translate_ref(*tables, *q)):
+        assert torch.equal(x, y)
+
+
+def _attention_inputs(rng, B, H, KV, hd, page, n_pages, dtype, cuda):
+    slots = n_pages * B + 2
+    q = torch.as_tensor(rng.standard_normal((B, H, hd)), dtype=dtype)
+    kp, vp = (torch.as_tensor(rng.standard_normal((slots, page, KV, hd)),
+                              dtype=dtype) for _ in range(2))
+    pm = rng.integers(0, slots, (B, n_pages)).astype(np.int32)
+    pm[:, 1:][rng.random((B, n_pages - 1)) < 0.25] = -1    # holes
+    pm[0, -1] = slots + 5                                  # clamped slot
+    pm[-1, :] = -1                                         # all unmapped
+    lengths = rng.integers(1, n_pages * page + 3, B).astype(np.int32)
+    lengths[-2] = 0                                        # empty row
+    return [x.to(cuda) for x in (q, kp, vp, torch.as_tensor(pm),
+                                 torch.as_tensor(lengths))]
+
+
+# the JAX tests' shapes, the serving width, a page needing more than 48 KB
+# of shared memory, and a head dim that is not a multiple of 4 (the dot
+# product's remainder loop)
+ATTENTION_SHAPES = [(2, 4, 1, 16, 8, 4), (3, 8, 2, 32, 16, 6),
+                    (1, 16, 8, 64, 8, 3), (16, 32, 4, 128, 16, 24),
+                    (4, 8, 1, 256, 64, 3), (2, 4, 2, 6, 8, 3)]
+
+
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_paged_attention_kernel_matches_ref(cuda, shape, dtype):
+    """Rows with a valid token agree with the plain version (fp32 3e-5,
+    bf16 2e-2); rows with none give the TPU kernel's zeros."""
+    B = max(shape[0], 3)
+    x = _attention_inputs(np.random.default_rng(sum(shape)), B, *shape[1:],
+                          dtype, cuda)
+    before = PAK.paged_attention_kernel.launches
+    got = pa_ops.paged_attention(*x, shape[3] ** -0.5, device=cuda)
+    assert PAK.paged_attention_kernel.launches == before + 1
+    want = paged_attention_ref(*x, shape[3] ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    page = shape[4]
+    tok = (x[3] >= 0).repeat_interleave(page, dim=1)
+    t = torch.arange(tok.shape[1], device=cuda)
+    rows = (tok & (t[None] < x[4][:, None])).any(dim=1)
+    assert not rows[-1] and not rows[-2] and rows[0]
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got[~rows].float(),
+                       torch.zeros_like(got[~rows].float()))
+
+
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES[:4], ids=str)
+def test_paged_attention_kernel_unmapped_reads_zero(cuda, shape):
+    """The vmem decode contract: every row, length 0 (the uniform mean of
+    the gathered rows) included, agrees with the plain version."""
+    B = max(shape[0], 3)
+    x = _attention_inputs(np.random.default_rng(7 + sum(shape)), B,
+                          *shape[1:], torch.float32, cuda)
+    got = PAK.paged_attention_kernel(*x, 0.3, unmapped_reads_zero=1)
+    want = paged_attention_ref(*x, 0.3, unmapped_reads_zero=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_paged_attention_kernel_rejects_bad_inputs(cuda):
+    x = _attention_inputs(np.random.default_rng(1), 2, 4, 2, 16, 8, 4,
+                          torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        PAK.paged_attention_kernel(x[0][:, :3].contiguous(), *x[1:], 0.25)
+    with pytest.raises(ValueError, match="int32"):
+        PAK.paged_attention_kernel(*x[:3], x[3].long(), x[4], 0.25)
+    with pytest.raises(ValueError, match="CPU path"):
+        pa_ops.paged_attention(*x, 0.25, force="ref", device=cuda)
+
+
+def test_paged_decode_attention_on_card_matches_cpu(cuda):
+    """The vmem path on the card (pagewalk + paged_attention kernels)
+    against the same path on the CPU, a hole below the length included."""
+    rng = np.random.default_rng(3)
+    data = [torch.as_tensor(rng.standard_normal((64, 16, 4, 128)),
+                            dtype=torch.float32) for _ in range(2)]
+    kvs = {}
+    for dev in ("cpu", cuda):
+        kv = KC.PagedKVCache.create(
+            n_slots=64, page_size=16, n_kv_heads=4, head_dim=128,
+            n_tenants=2, reqs_per_tenant=2, logical_pages=8,
+            tenant_pages=32, dtype=torch.float32, device=dev)
+        for p in range(6):
+            kv, ok = KC.ensure_mapped(kv, 1, 1, p)
+            assert ok
+        kv.k_pool.copy_(data[0])
+        kv.v_pool.copy_(data[1])
+        # a hole: page 2's tenant page loses its host slot
+        tp = int(kv.tables.vs_table[1, 1, 2])
+        kv = kv._replace(tables=PT.hfence(PT.unmap_stage2(kv.tables, 1, tp),
+                                          1))
+        kvs[str(dev)] = kv
+    q = torch.as_tensor(rng.standard_normal((32, 128)), dtype=torch.float32)
+    for length in (1, 50, 96):
+        a = KC.paged_decode_attention(kvs["cpu"], 1, 1, q, length, 0.088)
+        pa0 = PAK.paged_attention_kernel.launches
+        pw0 = K.two_stage_translate_kernel.launches
+        b = KC.paged_decode_attention(kvs[str(cuda)], 1, 1, q.to(cuda),
+                                      length, 0.088)
+        assert PAK.paged_attention_kernel.launches == pa0 + 1
+        assert K.two_stage_translate_kernel.launches == pw0 + 1
+        torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=3e-5)

@@ -4,6 +4,7 @@ On the CPU the entry point runs the plain version (``ref.py``); the CUDA
 kernel is held against it on the card by ``chip_smoke.py`` and by
 ``tests/test_torch_cuda.py``.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,6 +38,46 @@ def test_ref_matches_jax(B, force):
     got = ops.two_stage_translate(*tables, *q, device="cpu")
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+def _out_of_range_queries(rng, B, dims):
+    """Coordinates in [-2n, 2n) of each dimension n (negative ones wrap
+    once in a JAX gather, then everything is clamped), plus the query
+    (tenant=-1, req=0, page=-1)."""
+    t, r, p = (rng.integers(-2 * n, 2 * n, B).astype(np.int32)
+               for n in dims)
+    t[0], r[0], p[0] = -1, 0, -1
+    return t, r, p, rng.integers(0, 2, B).astype(bool)
+
+
+@pytest.mark.parametrize("B", [1, 64, 513])
+def test_out_of_range_coordinates_match_jax(B):
+    rng = np.random.default_rng(100 + B)
+    T, R, P, G = 3, 4, 5, 6
+    tables = _random_tables(rng, T, R, P, G, slots=9)
+    q = _out_of_range_queries(rng, B, (T, R, P))
+    # JAX arrays: a numpy table would index by numpy's rules
+    want = jax_translate(*map(jnp.asarray, tables + q), force="ref")
+    got = ops.two_stage_translate(*tables, *q, device="cpu")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+def test_negative_query_reads_last_tenant_and_page():
+    """(tenant=-1, req=0, page=-1) reads tenant T-1, page P-1."""
+    T, R, P, G = 3, 4, 5, 6
+    vs = np.full((T, R, P), -1, np.int32)
+    perm = np.full((T, R, P), 3, np.int32)
+    g = np.full((T, G), 7, np.int32)
+    vs[0, 0, 0] = 2                   # what clamping alone would read
+    q = [np.array([x], np.int32) for x in (-1, 0, -1)]
+    slot, fault, stage = ops.two_stage_translate(vs, perm, g, *q,
+                                                 device="cpu")
+    assert (int(slot[0]), bool(fault[0]), int(stage[0])) == (-1, True, 1)
+    vs[T - 1, 0, P - 1] = 4
+    slot, fault, stage = ops.two_stage_translate(vs, perm, g, *q,
+                                                 device="cpu")
+    assert (int(slot[0]), bool(fault[0]), int(stage[0])) == (7, False, 0)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -35,7 +35,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  copies, and timed beside its byte bound; the fp32 shapes
                  of ``tests/test_kernels.py`` and an all-unmapped row; and
                  ``evict_tenant`` with the pool invariants checked;
-6. kernels     — one JSON line listing each ported kernel.
+6. model       — the dense LM serving path at H2O-Danube-3-4B's full
+                 width and depth (24 layers, d 3840, H 32, KV 8, hd 120,
+                 window 4096; seeded bf16 weights): the flash_attention
+                 kernel against its plain version at the shapes of
+                 ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2), at a
+                 ragged S with hd 120, and one KV head at a time at the
+                 model's prefill shape, B = 1 and the path's B = 4; then
+                 the path: ``prefill`` of 4 seeded 8192-token prompts
+                 (every kernel count set to 0 just before it and read just
+                 after: exactly 24 flash launches) and 16 greedy
+                 ``decode_step``s; at B = 1 the kernel against its plain
+                 version on every layer's own q, k, v inside one prefill,
+                 that prefill's logits against a prefill through the plain
+                 version, and decode at position 8192 against a fresh
+                 8193-token prefill (both by logit row norm), each beside
+                 controls (a window off by one, attention_core's bf16
+                 numerics, a decode position off by one) that show what
+                 the logit checks can and cannot see; times of the kernel
+                 at S = 8192 and 32768 beside its bound, of SDPA and of the
+                 plain version, the prefill wall, decode ms per step over
+                 16 steps and the device idle share of a decode step;
+7. kernels     — one JSON line listing each ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -43,6 +64,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -55,7 +77,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 2026
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 
-KERNEL_SOURCES = ("pagewalk", "paged_attention")
+KERNEL_SOURCES = ("pagewalk", "paged_attention", "flash_attention")
+BF16_PEAK_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
 
 # pagewalk at the realistic size of its docstring: 1 MiB stage-1 tables
 T, R, P, G = 8, 64, 512, 4096
@@ -90,6 +113,34 @@ FP32_TOL = 3e-5
 # the shapes of tests/test_kernels.py::test_paged_attention_matches_ref
 FP32_SHAPES = ((2, 4, 1, 16, 8, 4), (3, 8, 2, 32, 16, 6),
                (1, 16, 8, 64, 8, 3))
+
+# model: H2O-Danube-3-4B (src/repro/configs/h2o_danube_3_4b.py) at full
+# width and depth, serving 4 requests of 8192 tokens (a multiple of the
+# 4096 window, so the ring slabs stay position-congruent: ROADMAP R6)
+LM_ARCH = "h2o_danube_3_4b"
+LM_B, LM_S, LM_STEPS = 4, 8192, 16
+# the flash shapes of tests/test_kernels.py (B, S, H, KV, hd, window, dtype)
+# and a ragged S at hd = 120
+FLASH_SHAPES = ((1, 64, 2, 1, 16, 0, "float32"),
+                (2, 128, 4, 2, 32, 0, "float32"),
+                (1, 128, 4, 4, 32, 32, "float32"),
+                (2, 256, 8, 2, 64, 0, "bfloat16"),
+                (1, 100, 8, 2, 120, 32, "float32"),
+                (1, 100, 8, 2, 120, 32, "bfloat16"))
+FLASH_FP32_TOL = 2e-5
+# logits of the whole 24-layer model, by row: ||got - want|| / ||want||.
+# Any bf16-level difference in one layer's output grows through the 24
+# random-weight layers to ~2e-2 in the logits: the kernel against its
+# plain version (fp32 sums in another order) reads 1.821e-2, the kernel
+# with a window one key short 1.924e-2, attention_core's bf16 numerics
+# 1.866e-2, decode against prefill 1.941e-2.  So the logit route check
+# stops gross faults only, and the gate of the kernel's numerics is the
+# per-layer check (bf16 element and row tolerances above, on each layer's
+# own q, k, v), whose control (a window one key short) must exceed its
+# row tolerance or the script fails.  The decode check's control (one
+# position too far) must exceed its limit likewise.
+ROUTE_TOL = 2e-2
+DECODE_TOL = 2.5e-2
 
 
 def phase(name: str, **kv) -> None:
@@ -591,6 +642,471 @@ def vmem_phase(torch, np, dev) -> list:
         "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# model: the dense LM serving path with the flash_attention kernel
+# ---------------------------------------------------------------------------
+
+def flash_bound(B, S, H, KV, hd, window, itemsize):
+    """(bound ms, "bytes" or "operations", flops, bytes) of causal
+    attention: 4 * hd flops per query head and visible (query, key) pair
+    at the bf16 tensor-core peak, against q, k, v and out moved once."""
+    w = window if window else S
+    pairs = sum(min(q + 1, w) for q in range(S))
+    flops = 4 * hd * H * B * pairs
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * itemsize
+    t_ops, t_bytes = flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def flash_inputs(torch, gen, dev, B, S, H, KV, hd, dtype):
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev) * 0.5
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev) * 0.5
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+    return [x.to(dtype) for x in (q, k, v)]
+
+
+def plain_by_kv_head(torch, ref):
+    """The plain version one KV head (and its G query heads) at a time:
+    the same function at 1/KV of the plain version's score memory."""
+    def attend(q, k, v, scale, window):
+        KV = k.shape[2]
+        G = q.shape[2] // KV
+        return torch.cat([ref(q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1],
+                              v[:, :, h:h + 1], scale, window)
+                          for h in range(KV)], dim=2)
+    return attend
+
+
+def flash_checks(torch, dev, gen, FAK, ref) -> float:
+    """The kernel against its plain version at the JAX tests' shapes."""
+    worst = 0.0
+    for B, S, H, KV, hd, window, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = flash_inputs(torch, gen, dev, B, S, H, KV, hd, dtype)
+        got = FAK.flash_attention_kernel(q, k, v, hd ** -0.5, window)
+        want = ref(q, k, v, hd ** -0.5, window)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FLASH_FP32_TOL
+        shape = (B, S, H, KV, hd, window, dt)
+        err = close(got, want, tol, f"flash_attention {shape}")
+        worst = max(worst, err)
+        phase("model", flash_shape=shape,
+              max_abs_err=f"{err:.3e}", tol=tol)
+    return worst
+
+
+def check_by_kv_head(torch, ref, got, q, k, v, scale, window, what,
+                     controls=()):
+    """(max abs error, max row relative error, [max row relative error of
+    each control]) of the kernel's output ``got`` against the plain
+    version, one KV head (and its G query heads) at a time; raises above
+    the bf16 element or row tolerance.  ``controls`` are other outputs
+    held against the same plain version without a limit."""
+    KV = k.shape[2]
+    G = q.shape[2] // KV
+    err = rel = 0.0
+    ctrl = [0.0] * len(controls)
+    for h in range(KV):
+        sl = slice(h * G, (h + 1) * G)
+        want = ref(q[:, :, sl], k[:, :, h:h + 1], v[:, :, h:h + 1], scale,
+                   window)
+        err = max(err, close(got[:, :, sl], want, BF16_TOL,
+                             f"{what}, KV head {h}"))
+        rel = max(rel, row_rel_err(got[:, :, sl], want, BF16_ROW_REL_TOL,
+                                   f"{what}, KV head {h}"))
+        ctrl = [max(c, rel_rows(torch, o[:, :, sl], want))
+                for c, o in zip(ctrl, controls)]
+        del want
+    return err, rel, ctrl
+
+
+def flash_full_width(torch, dev, gen, cfg, FAK, ref, flush) -> dict:
+    """The kernel at the model's prefill shape (B = 1, and the path's
+    B = LM_B at S = 8192), held against its plain version one KV head at a
+    time, then timed beside its bound, the plain version and SDPA (at
+    S = 8192 and at SHAPES["prefill_32k"])."""
+    from repro_torch.configs import SHAPES
+
+    H, KV, hd, window = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                         cfg.window)
+    G, scale = H // KV, hd ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for S in (LM_S, SHAPES["prefill_32k"].seq_len):
+        q, k, v = flash_inputs(torch, gen, dev, 1, S, H, KV, hd,
+                               torch.bfloat16)
+        got = FAK.flash_attention_kernel(q, k, v, scale, window)
+        if S == LM_S:
+            err, rel, _ = check_by_kv_head(torch, ref, got, q, k, v,
+                                           scale, window,
+                                           f"flash_attention S={S}")
+            phase("model", flash_full_width=(1, S, H, KV, hd, window),
+                  vs_plain_by_kv_head_max_abs_err=f"{err:.3e}", tol=BF16_TOL,
+                  max_row_rel_err=f"{rel:.3e}", row_rel_tol=BF16_ROW_REL_TOL)
+            out.update(max_abs_err=err)
+        k_ms = time_cuda(lambda: FAK.flash_attention_kernel(
+            q, k, v, scale, window), torch, iters=10 if S > LM_S else 20,
+            warmup=2, flush=flush)
+        bound_ms, bound_by, flops, nbytes = flash_bound(1, S, H, KV, hd,
+                                                        window, 2)
+        # the library yardstick: SDPA with the window as a boolean mask,
+        # K/V heads repeated to H outside the timed call
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        qh, kh, vh = (x.transpose(1, 2) for x in
+                      (q, k.repeat_interleave(G, dim=2),
+                       v.repeat_interleave(G, dim=2)))
+        lib_out = sdpa(qh, kh, vh, attn_mask=mask, scale=scale)
+        lib_err = float((lib_out.transpose(1, 2).float() - got.float())
+                        .abs().max())
+        lib_ms = time_cuda(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                        scale=scale), torch,
+                           iters=10 if S > LM_S else 20, warmup=2,
+                           flush=flush)
+        del lib_out, qh, kh, vh, mask
+        line = dict(S=S, kernel_ms=f"{k_ms:.4f}",
+                    bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                    flops=flops, bytes=nbytes,
+                    kernel_over_bound=f"{k_ms / bound_ms:.1f}",
+                    sdpa_masked_ms=f"{lib_ms:.4f}",
+                    sdpa_vs_kernel_max_abs=f"{lib_err:.3e}")
+        if S == LM_S:
+            # the path's own shape: the prefill's B = LM_B requests, held
+            # against the plain version before it is timed
+            qb, kb, vb = flash_inputs(torch, gen, dev, LM_B, S, H, KV, hd,
+                                      torch.bfloat16)
+            gb = FAK.flash_attention_kernel(qb, kb, vb, scale, window)
+            b_err, b_rel, _ = check_by_kv_head(torch, ref, gb, qb, kb, vb,
+                                            scale, window,
+                                            f"flash_attention B={LM_B} "
+                                            f"S={S}")
+            del gb
+            phase("model", flash_path_shape=(LM_B, S, H, KV, hd, window),
+                  vs_plain_by_kv_head_max_abs_err=f"{b_err:.3e}",
+                  tol=BF16_TOL, max_row_rel_err=f"{b_rel:.3e}",
+                  row_rel_tol=BF16_ROW_REL_TOL)
+            out["max_abs_err"] = max(err, b_err)
+            path_ms = time_cuda(lambda: FAK.flash_attention_kernel(
+                qb, kb, vb, scale, window), torch, iters=5, warmup=1,
+                flush=flush)
+            del qb, kb, vb
+            line[f"kernel_ms_at_B{LM_B}"] = f"{path_ms:.4f}"
+            plain = plain_by_kv_head(torch, ref)
+            plain_ms = time_cuda(lambda: plain(q, k, v, scale, window),
+                                 torch, iters=5, warmup=1, flush=flush)
+            line["plain_by_kv_head_ms"] = f"{plain_ms:.4f}"
+            out.update(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms, path_ms=path_ms)
+        phase("model", **line)
+        del q, k, v, got
+    return out
+
+
+@contextlib.contextmanager
+def prefill_attention(fn):
+    """Inside the block, ``attn_prefill`` attends through ``fn(q, k, v,
+    scale, window)`` in place of ``ops.flash_attention``."""
+    from repro_torch.models import attention as AT
+
+    saved = AT.flash_attention
+    AT.flash_attention = fn
+    try:
+        yield
+    finally:
+        AT.flash_attention = saved
+
+
+def teed_flash(torch, FAK, ref):
+    """An attention for ``attn_prefill`` that launches the kernel, holds
+    its output against the plain version (one KV head at a time) on the
+    same q, k, v, and passes the kernel's output on; ``.errs`` keeps each
+    call's (max abs, max row relative, [control's max row relative])
+    error.  The control is the kernel with a window one key short, which
+    the row tolerance must see."""
+    def attend(q, k, v, scale, window):
+        got = FAK.flash_attention_kernel(q, k, v, scale, window)
+        short = FAK.flash_attention_kernel(q, k, v, scale, window - 1)
+        attend.errs.append(check_by_kv_head(
+            torch, ref, got, q, k, v, scale, window,
+            f"flash_attention, layer {len(attend.errs)}", controls=(short,)))
+        return got
+    attend.errs = []
+    return attend
+
+
+def core_by_kv_head(torch, AT):
+    """``attention_core`` (QK^T and the weights rounded to bf16, as the JAX
+    prefill computes) one KV head at a time, in the kernel's contract."""
+    def attend(q, k, v, scale, window):
+        pos = torch.arange(q.shape[1], device=q.device)
+        mask = AT._causal_mask(pos, pos, window)[None, None]
+        KV = k.shape[2]
+        G = q.shape[2] // KV
+        return torch.cat([AT.attention_core(q[:, :, h * G:(h + 1) * G],
+                                            k[:, :, h:h + 1],
+                                            v[:, :, h:h + 1], mask, scale)
+                          for h in range(KV)], dim=2)
+    return attend
+
+
+def busy_us(kernels) -> float:
+    """µs covered by the union of the kernels' [start, end) intervals."""
+    spans = sorted((k.time_range.start, k.time_range.end) for k in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
+def decode_busy(torch, step):
+    """(device busy ms, profiled step ms, top kernels) of one ``step()``
+    under ``torch.profiler``: the union of its kernels' device intervals,
+    the step's host wall (launch to synchronise) under the profiler, and
+    the six kernels with the most device time as (name, launches, µs).
+    The busy time is None if the trace holds no device kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, wall_us / 1e3, []
+    per_name = {}
+    for k in kernels:
+        n, us = per_name.get(k.name, (0, 0.0))
+        per_name[k.name] = (n + 1, us + k.time_range.end - k.time_range.start)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return (busy_us(kernels) / 1e3, wall_us / 1e3,
+            [(name[:60], n, round(us, 1)) for name, (n, us) in top])
+
+
+def rel_rows(torch, got, want) -> float:
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def serve(torch, dev, cfg, lm, TF, prompts, counts):
+    """The path: one prefill of the prompts, then LM_STEPS greedy decode
+    steps; every kernel count is set to 0 just before the prefill and the
+    launches of the prefill and of the decode steps are read after each."""
+    B, S = prompts.shape
+    cache = TF.init_cache(cfg, B, S, device=dev)
+    torch.cuda.synchronize()
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = TF.prefill(lm, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    at_prefill = [c.launches for c in counts]
+    tokens, step_ms = [], []
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    for _ in range(LM_STEPS):
+        nxt = logits.float().argmax(dim=-1)
+        tokens.append(nxt)
+        t0 = time.perf_counter()
+        logits, cache = TF.decode_step(lm, cfg, nxt, pos, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        pos = pos + 1
+        if logits.shape != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise RuntimeError("decode_step: bad logits")
+    return (prefill_s, at_prefill, [c.launches for c in counts],
+            torch.stack(tokens, dim=1), step_ms, cache, pos, logits)
+
+
+def model_phase(torch, np, dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.models import attention as AT
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+
+    # ---- 1-2. the kernel alone ---------------------------------------------
+    test_err = flash_checks(torch, dev, gen, FAK, flash_attention_ref)
+    kernel = flash_full_width(torch, dev, gen, cfg, FAK, flash_attention_ref,
+                              flush)
+
+    # ---- 3. the path: full model, 4 requests -------------------------------
+    t0 = time.perf_counter()
+    lm = TF.init_lm(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    phase("model", arch=cfg.name, layers=cfg.n_layers, params=n_params,
+          weight_bytes=sum(p.numel() * p.element_size()
+                           for p in lm.parameters()),
+          init_s=f"{time.perf_counter() - t0:.2f}")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (LM_B, LM_S + 1)), device=dev)
+    counts = (FAK.flash_attention_kernel, PAK.paged_attention_kernel,
+              PWK.two_stage_translate_kernel)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (prefill_s, at_prefill, at_end, tokens, step_ms, cache, _, _) = serve(
+        torch, dev, cfg, lm, TF, prompts[:, :LM_S], counts)
+    launches = at_prefill[0]
+    phase("model", path=f"prefill {LM_B} x {LM_S} + {LM_STEPS} decode steps",
+          flash_launches_prefill=launches,
+          flash_launches_total=at_end[0],
+          paged_attention_launches=at_end[1], pagewalk_launches=at_end[2],
+          prefill_wall_s=f"{prefill_s:.3f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
+    if launches != cfg.n_layers or at_end[0] != cfg.n_layers:
+        raise RuntimeError(f"the prefill launched the flash kernel "
+                           f"{launches} times (decode: "
+                           f"{at_end[0] - launches}), not once per layer")
+    tok = tokens.cpu().numpy()
+    checksum = int((tok * np.arange(1, tok.size + 1).reshape(tok.shape))
+                   .sum() % 1_000_000_007)
+    phase("model", greedy_tokens=tok.tolist(), checksum=checksum)
+
+    # steady-state times: a second serve (prefill and decode window), then
+    # one profiled decode step on its cache
+    (prefill2_s, _, _, tokens2, step2_ms, cache, pos, _) = serve(
+        torch, dev, cfg, lm, TF, prompts[:, :LM_S], counts)
+    decode_ms = sum(step2_ms) / len(step2_ms)
+    nxt = tokens2[:, -1]
+    busy_ms, prof_ms, top = decode_busy(
+        torch, lambda: TF.decode_step(lm, cfg, nxt, pos, cache))
+    # the kernel's share of the prefill, from its time at the path's shape
+    flash_share = cfg.n_layers * kernel["path_ms"] / (prefill2_s * 1e3)
+    phase("model", prefill_wall_s=f"{prefill2_s:.3f}",
+          prefill_tok_per_s=f"{LM_B * LM_S / prefill2_s:.0f}",
+          flash_share_of_prefill=f"{flash_share:.3f}",
+          decode_steps=len(step2_ms),
+          decode_ms_per_step=f"{decode_ms:.3f}",
+          decode_ms_median=f"{statistics.median(step2_ms):.3f}",
+          decode_ms_min_max=f"{min(step2_ms):.3f}/{max(step2_ms):.3f}",
+          decode_tok_per_s=f"{LM_B * 1e3 / decode_ms:.1f}",
+          same_tokens_as_first_serve=bool(torch.equal(tokens2, tokens)))
+    if busy_ms is None:
+        phase("model", decode_device_idle_share="not measured",
+              decode_step_profiled_ms=f"{prof_ms:.3f}")
+    else:
+        # idle against the unprofiled step (the decode window's mean) and,
+        # for reference, against the profiled step's own wall
+        phase("model", decode_device_busy_ms=f"{busy_ms:.3f}",
+              decode_device_idle_share=f"{1.0 - busy_ms / decode_ms:.4f}",
+              decode_step_profiled_ms=f"{prof_ms:.3f}",
+              idle_share_of_profiled_step=f"{1.0 - busy_ms / prof_ms:.4f}")
+    phase("model", decode_step_top_kernels=top)
+    del cache
+
+    # ---- 4. two checks at B = 1, each beside its controls -------------------
+    one = prompts[:1]
+
+    def prefill_logits(attend, tokens):
+        with prefill_attention(attend):
+            return TF.prefill(lm, cfg, tokens,
+                              TF.init_cache(cfg, 1, LM_S, device=dev))[0]
+
+    plain = plain_by_kv_head(torch, flash_attention_ref)
+    teed = teed_flash(torch, FAK, flash_attention_ref)
+    via_kernel = prefill_logits(teed, one[:, :LM_S])
+    if len(teed.errs) != cfg.n_layers:
+        raise RuntimeError("the route prefill did not attend once per layer")
+    layer_err = max(e for e, _, _ in teed.errs)
+    layer_rel = max(r for _, r, _ in teed.errs)
+    short_rel = [c[0] for _, _, c in teed.errs]
+    phase("model", route="kernel vs plain flash on each layer's q, k, v",
+          layers=len(teed.errs), max_abs_err=f"{layer_err:.3e}",
+          tol=BF16_TOL, max_row_rel_err=f"{layer_rel:.3e}",
+          row_rel_tol=BF16_ROW_REL_TOL)
+    phase("model", layer_control="kernel with window - 1 vs plain flash "
+          "on each layer's q, k, v", max_row_rel_err=f"{max(short_rel):.3e}",
+          must_exceed=BF16_ROW_REL_TOL,
+          layers_above_tol=sum(r > BF16_ROW_REL_TOL for r in short_rel),
+          least_layer=f"{min(short_rel):.3e}")
+    if not max(short_rel) > BF16_ROW_REL_TOL:
+        raise RuntimeError(f"the per-layer check cannot see a window one "
+                           f"key short: {max(short_rel):.3e} <= "
+                           f"{BF16_ROW_REL_TOL}")
+    via_plain = prefill_logits(plain, one[:, :LM_S])
+
+    def against_plain(logits):
+        return (rel_rows(torch, logits, via_plain),
+                bool((logits.float().argmax(-1) ==
+                      via_plain.float().argmax(-1)).all()))
+
+    route, top1 = against_plain(via_kernel)
+    phase("model", route="kernel vs plain flash in one prefill, B=1",
+          logits_row_rel_err=f"{route:.3e}", tol=ROUTE_TOL, top1_agree=top1)
+    # controls: a window one key short, and attention_core's bf16 numerics
+    short, short_top1 = against_plain(prefill_logits(
+        lambda q, k, v, scale, window: FAK.flash_attention_kernel(
+            q, k, v, scale, window - 1), one[:, :LM_S]))
+    bf16, bf16_top1 = against_plain(prefill_logits(core_by_kv_head(torch,
+                                                                   AT),
+                                                   one[:, :LM_S]))
+    phase("model", route_control="kernel with window - 1 vs plain flash",
+          logits_row_rel_err=f"{short:.3e}", top1_agree=short_top1,
+          within_tol=short <= ROUTE_TOL)
+    phase("model", route_control="attention_core (QK^T, P in bf16) vs "
+          "plain flash", logits_row_rel_err=f"{bf16:.3e}",
+          top1_agree=bf16_top1, within_tol=bf16 <= ROUTE_TOL)
+    if not route <= ROUTE_TOL:
+        raise RuntimeError(f"prefill through the kernel differs from the "
+                           f"plain route: {route:.3e} > {ROUTE_TOL}")
+
+    cache = TF.init_cache(cfg, 1, LM_S, device=dev)
+    _, cache = TF.prefill(lm, cfg, one[:, :LM_S], cache)
+    saved = [{n: x.clone() for n, x in layer.items()} for layer in cache]
+    dec, _ = TF.decode_step(lm, cfg, one[:, LM_S],
+                            torch.full((1,), LM_S, dtype=torch.int32,
+                                       device=dev), cache)
+    # control: the same token decoded one position too far, on the
+    # prefill's own cache
+    off, _ = TF.decode_step(lm, cfg, one[:, LM_S],
+                            torch.full((1,), LM_S + 1, dtype=torch.int32,
+                                       device=dev), saved)
+    fresh, _ = TF.prefill(lm, cfg, one,
+                          TF.init_cache(cfg, 1, LM_S, device=dev))
+    dvp = rel_rows(torch, dec, fresh)
+    ctrl = rel_rows(torch, off, fresh)
+    phase("model", check=f"decode at {LM_S} vs a fresh {LM_S + 1}-token "
+          f"prefill, B=1", logits_row_rel_err=f"{dvp:.3e}", tol=DECODE_TOL,
+          top1_agree=bool((dec.float().argmax(-1) ==
+                           fresh.float().argmax(-1)).all()))
+    phase("model", decode_control=f"decode at {LM_S + 1} vs the fresh "
+          f"prefill", logits_row_rel_err=f"{ctrl:.3e}",
+          must_exceed=DECODE_TOL)
+    if not dvp <= DECODE_TOL:
+        raise RuntimeError(f"decode differs from prefill: {dvp:.3e} > "
+                           f"{DECODE_TOL}")
+    if not ctrl > DECODE_TOL:
+        raise RuntimeError(f"the decode check cannot see a position off by "
+                           f"one: {ctrl:.3e} <= {DECODE_TOL}")
+    del lm, cache, saved
+
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+            "launches": launches,
+            "max_abs_err": max(test_err, kernel["max_abs_err"], layer_err),
+            "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+            "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+            "library_ms": kernel["library_ms"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -624,7 +1140,9 @@ def main() -> int:
     walk_launches, attention = vmem_phase(torch, np, dev)
     # pagewalk's path is now its consumer's: the vmem decode path
     walk["launches"] = walk_launches
-    kernels = [walk, attention]
+    torch.cuda.empty_cache()
+    flash = model_phase(torch, np, dev)
+    kernels = [walk, attention, flash]
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import decode as D
 from repro_torch.core.hext import isa as I
@@ -24,12 +25,16 @@ from repro_torch.core.hext import trap as TR
 from repro_torch.core.hext.sim import Fleet
 from repro_torch.core.vmem import kvcache as KC
 from repro_torch.core.vmem import page_table as PT
+from repro_torch.kernels.flash_attention import kernel as FAK
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import kernel as PAK
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.pagewalk import kernel as K
 from repro_torch.kernels.pagewalk import ops
 from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
+from repro_torch.models import transformer as TF
 
 pytestmark = pytest.mark.cuda
 MASK64 = (1 << 64) - 1
@@ -319,3 +324,89 @@ def test_paged_decode_attention_on_card_matches_cpu(cuda):
         assert PAK.paged_attention_kernel.launches == pa0 + 1
         assert K.two_stage_translate_kernel.launches == pw0 + 1
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the dense LM serving path
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, hd, window): tests/test_kernels.py's shapes, then hd = 120
+# at a ragged S, windows 1 and >= S, and Danube's head layout (G = 4)
+FLASH_SHAPES = [(1, 64, 2, 1, 16, 0), (2, 128, 4, 2, 32, 0),
+                (1, 128, 4, 4, 32, 32), (2, 256, 8, 2, 64, 0),
+                (1, 100, 8, 2, 120, 32), (2, 77, 4, 2, 120, 1),
+                (1, 70, 4, 1, 120, 500), (1, 300, 32, 8, 120, 128),
+                (1, 65, 2, 1, 256, 0)]
+
+
+def _flash_inputs(rng, B, S, H, KV, hd, dtype, dev):
+    q = rng.standard_normal((B, S, H, hd)) * 0.5
+    k = rng.standard_normal((B, S, KV, hd)) * 0.5
+    v = rng.standard_normal((B, S, KV, hd))
+    return [torch.as_tensor(x, dtype=torch.float32).to(dtype).to(dev)
+            for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_attention_kernel_matches_ref(cuda, shape, dtype):
+    B, S, H, KV, hd, window = shape
+    q, k, v = _flash_inputs(np.random.default_rng(sum(shape)), B, S, H, KV,
+                            hd, dtype, cuda)
+    n0 = FAK.flash_attention_kernel.launches
+    got = fa_ops.flash_attention(q, k, v, hd ** -0.5, window)
+    assert FAK.flash_attention_kernel.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda):
+    q, k, v = _flash_inputs(np.random.default_rng(1), 1, 32, 4, 2, 16,
+                            torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        FAK.flash_attention_kernel(q[:, :, :3].contiguous(), k, v, 0.25)
+    with pytest.raises(ValueError, match="float32"):
+        FAK.flash_attention_kernel(q, k.bfloat16(), v, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        FAK.flash_attention_kernel(q.transpose(1, 2), k, v, 0.25)
+    with pytest.raises(ValueError, match="CPU path"):
+        fa_ops.flash_attention(q, k, v, 0.25, force="ref")
+
+
+def _rel(got, want):
+    g, w = got.float().cpu(), want.float().cpu()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def test_dense_lm_on_card_matches_cpu(cuda):
+    """Reduced Danube (window 32, ring slabs of 32): prefill of 64 tokens
+    (one flash launch per layer) and 4 decode steps on the card against
+    the same weights on the CPU, within 2e-2 by row norm (bf16 matmuls
+    round differently on the two)."""
+    cfg = get_config("h2o_danube_3_4b", reduced=True)
+    lm_cpu = TF.init_lm(cfg, 5, device="cpu")
+    lm_gpu = TF.init_lm(cfg, 5, device="cpu").to(cuda)
+    rng = np.random.default_rng(11)
+    B, S = 2, 64
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 4)))
+    c_cpu = TF.init_cache(cfg, B, cfg.max_seq, device="cpu")
+    c_gpu = TF.init_cache(cfg, B, cfg.max_seq, device=cuda)
+    n0 = FAK.flash_attention_kernel.launches
+    a, c_cpu = TF.prefill(lm_cpu, cfg, toks[:, :S], c_cpu)
+    b, c_gpu = TF.prefill(lm_gpu, cfg, toks[:, :S].to(cuda), c_gpu)
+    assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers
+    assert _rel(b, a) <= 2e-2
+    for i in range(cfg.n_layers):
+        for n in "kv":
+            assert _rel(c_gpu[i][n], c_cpu[i][n]) <= 2e-2
+    for t in range(4):
+        pos = torch.full((B,), S + t)
+        a, c_cpu = TF.decode_step(lm_cpu, cfg, toks[:, S + t], pos, c_cpu)
+        b, c_gpu = TF.decode_step(lm_gpu, cfg, toks[:, S + t].to(cuda),
+                                  pos.to(cuda), c_gpu)
+        assert _rel(b, a) <= 2e-2
+    assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers

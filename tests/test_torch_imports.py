@@ -27,7 +27,14 @@ def test_port_has_modules():
                 "core/vmem/page_table.py", "core/vmem/allocator.py",
                 "core/vmem/kvcache.py", "kernels/paged_attention/ref.py",
                 "kernels/paged_attention/kernel.py",
-                "kernels/paged_attention/ops.py"):
+                "kernels/paged_attention/ops.py",
+                "configs/base.py", "configs/__init__.py",
+                "configs/h2o_danube_3_4b.py", "models/layers.py",
+                "models/mlp.py", "models/attention.py",
+                "models/transformer.py", "models/weights.py",
+                "kernels/flash_attention/ref.py",
+                "kernels/flash_attention/kernel.py",
+                "kernels/flash_attention/ops.py"):
         assert mod in names
 
 

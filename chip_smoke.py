@@ -32,15 +32,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  the path's coordinates; the batched decode (B=128) on the
                  path's page map and on one where every request owns its
                  slots, held against its plain version in bf16 and on fp32
-                 copies, and timed beside its byte bound; the fp32 shapes
+                 copies, and timed beside its byte bound, and the path's
+                 own call shape (B = 1, the longest request) timed beside
+                 its bound (one kernel call is two CUDA launches: the
+                 split kernel and the combine); the fp32 shapes
                  of ``tests/test_kernels.py`` and an all-unmapped row; and
                  ``evict_tenant`` with the pool invariants checked;
 6. model       — the dense LM serving path at H2O-Danube-3-4B's full
                  width and depth (24 layers, d 3840, H 32, KV 8, hd 120,
                  window 4096; seeded bf16 weights): the flash_attention
                  kernel against its plain version at the shapes of
-                 ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2), at a
-                 ragged S with hd 120, and one KV head at a time at the
+                 ``tests/test_kernels.py`` (fp32 2e-5 on the SIMT kernel,
+                 timed once; bf16 2e-2 on the tensor-core kernel), at a
+                 ragged S with hd 120, hd 20, a window edge inside a key
+                 tile and G = 1, and one KV head at a time at the
                  model's prefill shape, B = 1 and the path's B = 4; then
                  the path: ``prefill`` of 4 seeded 8192-token prompts
                  (every kernel count set to 0 just before it and read just
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -120,13 +126,20 @@ FP32_SHAPES = ((2, 4, 1, 16, 8, 4), (3, 8, 2, 32, 16, 6),
 LM_ARCH = "h2o_danube_3_4b"
 LM_B, LM_S, LM_STEPS = 4, 8192, 16
 # the flash shapes of tests/test_kernels.py (B, S, H, KV, hd, window, dtype)
-# and a ragged S at hd = 120
+# and a ragged S at hd = 120; then, for the tensor-core kernel (bf16), hd =
+# 20 (element loads), a window edge inside a key tile with a ragged last
+# tile, and G = 1 at hd = 120.  fp32 shapes run the SIMT kernel.
 FLASH_SHAPES = ((1, 64, 2, 1, 16, 0, "float32"),
                 (2, 128, 4, 2, 32, 0, "float32"),
                 (1, 128, 4, 4, 32, 32, "float32"),
                 (2, 256, 8, 2, 64, 0, "bfloat16"),
                 (1, 100, 8, 2, 120, 32, "float32"),
-                (1, 100, 8, 2, 120, 32, "bfloat16"))
+                (1, 100, 8, 2, 120, 32, "bfloat16"),
+                (2, 150, 4, 2, 20, 40, "bfloat16"),
+                (1, 257, 4, 1, 128, 64, "bfloat16"),
+                (1, 200, 4, 4, 120, 0, "bfloat16"))
+# the fp32 (SIMT) route is timed once, at this test shape
+FLASH_FP32_TIMED = (1, 100, 8, 2, 120, 32)
 FLASH_FP32_TOL = 2e-5
 # logits of the whole 24-layer model, by row: ||got - want|| / ||want||.
 # Any bf16-level difference in one layer's output grows through the 24
@@ -153,6 +166,29 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` output: the
+    kernel with its template arguments, then its register and spill
+    lines."""
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"\d([a-z_]+_kernel)(I.*?E)?E", mangled)
+            name = m.group(1) if m else mangled
+            if m and m.group(2):
+                args = re.findall(r"L[ib](\d+)E", m.group(2))
+                dtype = ("bf16" if "bfloat16" in m.group(2) else
+                         "float" if m.group(2).startswith("If") else None)
+                name += f"<{', '.join(([dtype] if dtype else []) + args)}>"
+            continue
+        if name and ("registers" in line or "spill" in line):
+            text = line.strip().removeprefix("ptxas info    : ")
+            out.append(f"{name}: {text}")
+    return out
 
 
 def time_cuda(fn, torch, iters: int = 50, warmup: int = 5,
@@ -400,6 +436,7 @@ def vmem_phase(torch, np, dev) -> list:
     from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
 
     B = VM_TENANTS * VM_REQS
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(1, VM_PAGES * VM_PAGE, B)        # [1, 4095]
     tenant_of = [b // VM_REQS for b in range(B)]
@@ -516,9 +553,13 @@ def vmem_phase(torch, np, dev) -> list:
     lens = torch.as_tensor(lengths + 1, dtype=torch.int32, device=dev)
     got = pa_ops.paged_attention(q, kv.k_pool, kv.v_pool, page_map, lens,
                                  scale, device=dev)
-    if not torch.equal(got, torch.stack(outs)):
-        raise RuntimeError("batched decode differs from the per-request "
-                           "path")
+    # the split count follows B (choose_splits), so the batched call and
+    # the per-request calls add the same terms in another order
+    path_outs = torch.stack(outs)
+    vs_path = close(got, path_outs, BF16_TOL,
+                    "batched decode vs the per-request path")
+    vs_path_rel = row_rel_err(got, path_outs, BF16_ROW_REL_TOL,
+                              "batched decode vs the per-request path")
 
     # the same lengths over a page map in which every request owns its
     # slots (a seeded permutation of the pool): what a cache whose requests
@@ -584,7 +625,10 @@ def vmem_phase(torch, np, dev) -> list:
     own_bytes = (2 * request_rows * row_bytes + qo_bytes +
                  int(live.sum()) * 4 + B * 4)
     own_bound_ms = own_bytes / HBM_BYTES_PER_S * 1e3
-    phase("vmem", batched_B=B, slots="shared", equal_to_path=True,
+    phase("vmem", batched_B=B, slots="shared",
+          vs_path_max_abs_err=f"{vs_path:.3e}",
+          vs_path_max_row_rel_err=f"{vs_path_rel:.3e}",
+          n_splits=PAK.choose_splits(B, VM_KV, VM_PAGE, VM_PAGES, n_sms),
           kernel_us=f"{k_ms * 1e3:.2f}",
           kernel_warm_l2_us=f"{k_warm_ms * 1e3:.2f}",
           plain_us=f"{plain_ms * 1e3:.2f}", bytes=nbytes,
@@ -594,6 +638,25 @@ def vmem_phase(torch, np, dev) -> list:
           kernel_us=f"{own_k_ms * 1e3:.2f}",
           plain_us=f"{own_plain_ms * 1e3:.2f}", bytes=own_bytes,
           bound_us=f"{own_bound_ms * 1e3:.3f}", kv_rows=request_rows)
+
+    # the path's own call shape: B = 1, the longest request, held against
+    # the path's output for it before it is timed
+    lb = int(torch.argmax(lens))
+    one = (q[lb:lb + 1], kv.k_pool, kv.v_pool, page_map[lb:lb + 1],
+           lens[lb:lb + 1], scale)
+    got1 = PAK.paged_attention_kernel(*one, unmapped_reads_zero=1)
+    if not torch.equal(got1[0], outs[lb]):
+        raise RuntimeError("the B = 1 call differs from the path's call")
+    one_ms = time_cuda(lambda: PAK.paged_attention_kernel(
+        *one, unmapped_reads_zero=1), torch, flush=flush)
+    one_bytes = (2 * int(lens[lb]) * row_bytes + 2 * VM_H * VM_HD * 2 +
+                 int(n_read[lb]) * 4 + 4)
+    one_bound_ms = one_bytes / HBM_BYTES_PER_S * 1e3
+    phase("vmem", path_call_shape="B=1, the longest request",
+          length=int(lens[lb]),
+          n_splits=PAK.choose_splits(1, VM_KV, VM_PAGE, VM_PAGES, n_sms),
+          kernel_us=f"{one_ms * 1e3:.2f}", bytes=one_bytes,
+          bound_us=f"{one_bound_ms * 1e3:.3f}")
 
     # context, not a library version of the kernel: SDPA over the same
     # tokens pre-gathered into dense K/V (GQA heads repeated), key mask
@@ -690,8 +753,15 @@ def flash_checks(torch, dev, gen, FAK, ref) -> float:
         shape = (B, S, H, KV, hd, window, dt)
         err = close(got, want, tol, f"flash_attention {shape}")
         worst = max(worst, err)
-        phase("model", flash_shape=shape,
+        route = ("tensor cores" if dtype == torch.bfloat16 else "SIMT")
+        phase("model", flash_shape=shape, route=route,
               max_abs_err=f"{err:.3e}", tol=tol)
+        if (B, S, H, KV, hd, window) == FLASH_FP32_TIMED:
+            # each dtype's kernel once at this shape, after its check
+            ms = time_cuda(lambda: FAK.flash_attention_kernel(
+                q, k, v, hd ** -0.5, window), torch)
+            phase("model", flash_shape=shape, route=route,
+                  kernel_us=f"{ms * 1e3:.2f}")
     return worst
 
 
@@ -1130,9 +1200,8 @@ def main() -> int:
                          pool.map(build.compile_source, KERNEL_SOURCES)))
     for name, info in infos.items():
         phase("build", kernel=name, seconds=f"{info['seconds']:.2f}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        for line in ptxas_lines(info["log"]):
+            print(f"  ptxas: {line}", flush=True)
     phase("build", wall_s=f"{time.perf_counter() - t0:.2f}")
 
     walk = pagewalk_phase(torch, np, dev)

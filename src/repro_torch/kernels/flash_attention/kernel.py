@@ -4,7 +4,10 @@ Replaces the TPU kernel ``flash_attention_kernel``
 (``src/repro/kernels/flash_attention/kernel.py:75``).  It is bound by
 operations (4 * hd flops per query head and visible pair); one CTA per
 (query tile, query head, batch row) walks only the key tiles its rows can
-see (see the note in the CUDA source).
+see.  The dtype picks the kernel: bf16 inputs run on the tensor cores
+(``mma.sync``, bf16 K/V in shared memory through ``cp.async``), fp32
+inputs on the SIMT kernel, whose fp32 FMAs meet the 2e-5 tolerance that
+TF32 tensor cores cannot (see the note in the CUDA source).
 
 ``flash_attention_kernel.launches`` counts the launches this process made;
 the wrapper adds one where it launches the kernel and nowhere else.
@@ -29,7 +32,7 @@ def _lib():
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] +
         [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -70,15 +73,15 @@ def flash_attention_kernel(q, k, v, scale: float, window: int = 0):
     if B == 0 or S == 0:
         return out
     lib = _lib()
-    smem = lib.flash_attention_smem_bytes(hd)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    smem = lib.flash_attention_smem_bytes(hd, is_bf16)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"hd={hd} needs {smem} B of shared memory per "
                          f"block, above {MAX_SMEM_BYTES}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KV, hd, float(scale), int(window), int(q.dtype == torch.bfloat16),
-        stream)
+        KV, hd, float(scale), int(window), is_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

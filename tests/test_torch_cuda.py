@@ -281,6 +281,61 @@ def test_paged_attention_kernel_unmapped_reads_zero(cuda, shape):
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
 
 
+def _long_inputs(rng, lengths, n_pages, dtype, cuda, H=32, KV=4, hd=128,
+                 page=16):
+    """A page table of ``n_pages`` with holes over a shared pool; one row
+    per length."""
+    B = len(lengths)
+    slots = 2 * n_pages
+    q = torch.as_tensor(rng.standard_normal((B, H, hd)), dtype=dtype)
+    kp, vp = (torch.as_tensor(rng.standard_normal((slots, page, KV, hd)),
+                              dtype=dtype) for _ in range(2))
+    pm = rng.integers(0, slots, (B, n_pages)).astype(np.int32)
+    pm[:, 1:][rng.random((B, n_pages - 1)) < 0.1] = -1
+    return [x.to(cuda) for x in (q, kp, vp, torch.as_tensor(pm),
+                                 torch.as_tensor(np.asarray(lengths,
+                                                            np.int32)))]
+
+
+# (lengths, n_pages): requests of >= 300 pages (many splits), lengths that
+# end mid-split and mid-page, a row whose every split is empty (length 0),
+# and single-request calls (B = 1, as the vmem decode path calls it)
+LONG_CASES = [((320 * 16, 64 * 5 + 16 * 2 + 7, 0), 320),
+              ((300 * 16 - 5, 17, 1), 300),
+              ((64 * 5 + 16 * 2 + 7,), 256), ((4095,), 256)]
+
+
+@pytest.mark.parametrize("unmapped_reads_zero", [0, 1])
+@pytest.mark.parametrize("case", LONG_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_paged_attention_kernel_many_splits(cuda, case, dtype,
+                                            unmapped_reads_zero):
+    lengths, n_pages = case
+    x = _long_inputs(np.random.default_rng(len(lengths) + n_pages),
+                     lengths, n_pages, dtype, cuda)
+    assert PAK.choose_splits(
+        len(lengths), 4, 16, n_pages,
+        torch.cuda.get_device_properties(cuda).multi_processor_count) > 8
+    got = PAK.paged_attention_kernel(
+        *x, 128 ** -0.5, unmapped_reads_zero=unmapped_reads_zero)
+    want = paged_attention_ref(*x, 128 ** -0.5,
+                               unmapped_reads_zero=unmapped_reads_zero)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    if unmapped_reads_zero:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        return
+    tok = (x[3] >= 0).repeat_interleave(16, dim=1)
+    t = torch.arange(tok.shape[1], device=cuda)
+    rows = (tok & (t[None] < x[4][:, None])).any(dim=1)
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got[~rows].float(),
+                       torch.zeros_like(got[~rows].float()))
+
+
 def test_paged_attention_kernel_rejects_bad_inputs(cuda):
     x = _attention_inputs(np.random.default_rng(1), 2, 4, 2, 16, 8, 4,
                           torch.float32, cuda)
@@ -331,12 +386,15 @@ def test_paged_decode_attention_on_card_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, KV, hd, window): tests/test_kernels.py's shapes, then hd = 120
-# at a ragged S, windows 1 and >= S, and Danube's head layout (G = 4)
+# at a ragged S, windows 1 and >= S, and Danube's head layout (G = 4); then
+# hd = 20 (the tensor-core kernel's element loads), a window edge inside a
+# key tile with a ragged last tile, and G = 1 at hd = 120
 FLASH_SHAPES = [(1, 64, 2, 1, 16, 0), (2, 128, 4, 2, 32, 0),
                 (1, 128, 4, 4, 32, 32), (2, 256, 8, 2, 64, 0),
                 (1, 100, 8, 2, 120, 32), (2, 77, 4, 2, 120, 1),
                 (1, 70, 4, 1, 120, 500), (1, 300, 32, 8, 120, 128),
-                (1, 65, 2, 1, 256, 0)]
+                (1, 65, 2, 1, 256, 0), (2, 150, 4, 2, 20, 40),
+                (1, 257, 4, 1, 128, 64), (1, 200, 4, 4, 120, 0)]
 
 
 def _flash_inputs(rng, B, S, H, KV, hd, dtype, dev):
@@ -362,6 +420,28 @@ def test_flash_attention_kernel_matches_ref(cuda, shape, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_unaligned_bases(cuda):
+    """bf16 tensors whose data starts 2 bytes past a 16-byte boundary take
+    the tensor-core kernel's element loads and agree all the same."""
+    B, S, H, KV, hd, window = 1, 130, 4, 2, 64, 48
+    q, k, v = _flash_inputs(np.random.default_rng(5), B, S, H, KV, hd,
+                            torch.bfloat16, cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    qs, ks, vs = map(shifted, (q, k, v))
+    assert qs.data_ptr() % 16 and qs.is_contiguous()
+    got = FAK.flash_attention_kernel(qs, ks, vs, hd ** -0.5, window)
+    want = flash_attention_ref(q, k, v, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):

@@ -182,3 +182,100 @@ def test_plain_version_keeps_q_dtype_and_shape():
                               torch.as_tensor(ln), sc)
     assert out.shape == q.shape and out.dtype == torch.float32
     assert torch.isfinite(out).all()
+
+
+def _split_then_combine(q, kp, vp, pm, lengths, scale, n_splits,
+                        unmapped_reads_zero):
+    """A plain model of the CUDA kernel's two launches: each request's
+    pages cut into ``n_splits`` runs of ceil(n_pages / n_splits), a partial
+    (m, l, acc) per run over its valid tokens (an empty run: -1e30, 0, 0),
+    then out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
+    1e-20)."""
+    q, kp, vp = (torch.as_tensor(x, dtype=torch.float64) for x in (q, kp, vp))
+    B, H, hd = q.shape
+    n_slots, page, KV = kp.shape[:3]
+    G = H // KV
+    n_pages = pm.shape[1]
+    pps = -(-n_pages // n_splits)
+    total = n_pages * page
+    out = torch.zeros((B, H, hd), dtype=torch.float64)
+    for b in range(B):
+        length = int(lengths[b])
+        uniform = bool(unmapped_reads_zero) and length <= 0
+        tok_end = total if uniform else min(max(length, 0), total)
+        steps = -(-tok_end // page)
+        qs = (q[b] * scale).reshape(KV, G, hd)
+        parts = []
+        for s in range(n_splits):
+            p0, p1 = s * pps, min(s * pps + pps, steps)
+            if p0 >= p1:
+                parts.append((torch.full((KV, G), -1e30),
+                              torch.zeros((KV, G)),
+                              torch.zeros((KV, G, hd))))
+                continue
+            t = torch.arange(p0 * page, min(p1 * page, tok_end))
+            entry = torch.as_tensor(pm[b])[t // page].long()
+            mapped = entry >= 0
+            slot = entry.clamp(0, n_slots - 1)
+            k = torch.where(mapped[:, None, None], kp[slot, t % page], 0.0)
+            v = torch.where(mapped[:, None, None], vp[slot, t % page], 0.0)
+            valid = mapped | bool(unmapped_reads_zero)
+            sc = torch.einsum("kgd,tkd->kgt", qs, k)
+            if uniform:
+                sc = torch.zeros_like(sc)
+            sc = torch.where(valid, sc, -1e30)
+            m = sc.max(dim=-1).values.clamp(min=-1e30)
+            p = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p, v)))
+        ms = torch.stack([x[0] for x in parts])
+        big = ms.max(dim=0).values
+        w = torch.exp(ms - big)
+        den = (w * torch.stack([x[1] for x in parts])).sum(0).clamp(
+            min=1e-20)
+        acc = (w[..., None] * torch.stack([x[2] for x in parts])).sum(0)
+        out[b] = (acc / den[..., None]).reshape(H, hd)
+    return out.float()
+
+
+@pytest.mark.parametrize("unmapped_reads_zero", [0, 1])
+@pytest.mark.parametrize("n_splits", [1, 2, 7, "n_pages"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_split_then_combine_matches_refs(shape, n_splits,
+                                         unmapped_reads_zero):
+    """The split kernel's algorithm, modelled on the CPU: rows with holes,
+    a row with every page unmapped and a row of length 0 (empty in every
+    split), against the port's plain version and the JAX ref.  Without
+    unmapped_reads_zero, rows with no valid token give zeros (the kernel's
+    contract) where the refs give the uniform mean."""
+    x = _inputs(sum(shape) + 11, *shape)
+    n = shape[5] if n_splits == "n_pages" else n_splits
+    got = _split_then_combine(*x, n, unmapped_reads_zero).numpy()
+    want = ops.paged_attention(*x, device="cpu",
+                               unmapped_reads_zero=unmapped_reads_zero)
+    if unmapped_reads_zero:
+        np.testing.assert_allclose(got, want.numpy(), atol=3e-5, rtol=3e-5)
+        return
+    rows = _valid_rows(x[3], x[4], shape[4])
+    assert not rows[-1] and not rows[-2] and rows[:-2].all()
+    jax_want = np.asarray(jax_ref(*map(jnp.asarray, x[:5]), x[5]))
+    np.testing.assert_allclose(got[rows], want.numpy()[rows], atol=3e-5,
+                               rtol=3e-5)
+    np.testing.assert_allclose(got[rows], jax_want[rows], atol=3e-5,
+                               rtol=3e-5)
+    np.testing.assert_array_equal(got[~rows], 0.0)
+
+
+@pytest.mark.parametrize("B,KV,page,n_pages", [
+    (128, 4, 16, 256), (1, 4, 16, 256), (3, 2, 16, 6), (1, 8, 8, 3),
+    (2, 1, 16, 10 ** 5), (1, 1, 1, 1), (4, 2, 8192, 3)])
+def test_choose_splits_rule(B, KV, page, n_pages):
+    """At least 64 tokens and at most 4096 tokens a split, within the page
+    table and the grid; enough CTAs for 4 waves of 2 on 132 SMs where the
+    tokens allow it."""
+    n = K.choose_splits(B, KV, page, n_pages, 132)
+    assert 1 <= n <= min(n_pages, K.MAX_GRID_Y)
+    assert -(-n_pages // n) * page <= max(page, K.MAX_SPLIT_TOKENS)
+    if n > 1 and n > -(-n_pages * page // K.MAX_SPLIT_TOKENS):
+        assert n_pages * page // n >= K.MIN_SPLIT_TOKENS
+    if n_pages * page >= 64 * 1056:
+        assert B * KV * n >= K.WAVES * K.CTAS_PER_SM * 132

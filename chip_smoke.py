@@ -12,9 +12,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  over every page of every request once, shuffled) is driven
                  with the launch count set to 0 just before and read just
                  after; then the kernel is held bit-exact against the plain
-                 version on the card at B in {1, 7, 512, 513, 262144} and on
-                 4096 out-of-range coordinates, and timed (CUDA events,
-                 median) beside its byte bound;
+                 version on the card at B in {1, 7, 512, 513, 262144}, on
+                 4096 out-of-range coordinates and on bases 4 bytes (1 for
+                 want_write) past an aligned one, and timed (CUDA events,
+                 median) at the 262,144-query table sweep beside its byte
+                 bound, with its decomposition (the fixed cost of a
+                 one-element kernel, a copy_ of the same bytes, the walk
+                 in table order and with L2 warm) and its grid;
 4. hext        — ``Fleet.boot`` of sha, crc32, basicmath, stringsearch and
                  fft x {native, guest} on the card (10 harts, 256 KiB each)
                  run to completion; every counter of every hart must equal
@@ -29,7 +33,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  ``paged_attention`` kernels) with the counts set to 0 just
                  before and read just after, each held against the plain
                  route (by element and by row norm); pagewalk bit-exact at
-                 the path's coordinates; the batched decode (B=128) on the
+                 the path's coordinates; the walk the path runs
+                 (``translate_kernel`` on ``translate``'s own plan, fused
+                 cache) and the walk on the same coordinates materialised
+                 as vectors, each bit-exact and timed at its consumers'
+                 shapes (B = 256 and 32,768) beside its bound; the whole
+                 ``translate_block`` and ``ensure_mapped`` translate calls
+                 timed and profiled, each required to be one walk with no
+                 aten op that launches or copies and, where the profiler
+                 sees the card, one CUDA kernel and no host-to-device
+                 copy; the fused entry bit-equal to its plain version at
+                 the decode path's coordinates; the batched decode (B=128)
+                 on the
                  path's page map and on one where every request owns its
                  slots, held against its plain version in bf16 and on fp32
                  copies, and timed beside its byte bound, and the path's
@@ -61,7 +76,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  at S = 8192 and 32768 beside its bound, of SDPA and of the
                  plain version, the prefill wall, decode ms per step over
                  16 steps and the device idle share of a decode step;
-7. kernels     — one JSON line listing each ported kernel.
+7. kernels     — one JSON line listing each ported kernel (pagewalk's
+                 times are those of the path's call, translate_block's
+                 walk).
+
+``--walk-times [--src DIR]`` runs only the pagewalk timings of phases 3
+and 5 for the ``repro_torch`` under ``DIR`` (default: this checkout's
+``src``), so a parent commit unpacked beside this one can be timed in
+turns with it inside one call; it prints no result line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, the script exits non-zero and
@@ -69,6 +91,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import re
@@ -192,18 +215,19 @@ def ptxas_lines(log: str) -> list:
 
 
 def time_cuda(fn, torch, iters: int = 50, warmup: int = 5,
-              flush=None) -> float:
+              flush=None, spin: int = 2_000_000) -> float:
     """Median milliseconds of ``fn`` by CUDA events, one event pair per
-    call; ``flush`` (untimed) runs before each call.  A ~1 ms device spin
-    is queued ahead of each start event, so the pair times the device
-    work and not the host's launch latency."""
+    call; ``flush`` (untimed) runs before each call.  A device spin of
+    ``spin`` cycles (~1 ms by default) is queued ahead of each start
+    event, so the pair times the device work and not the host's launch
+    latency, as long as the host queues ``fn`` within the spin."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -214,11 +238,139 @@ def time_cuda(fn, torch, iters: int = 50, warmup: int = 5,
     return statistics.median(times)
 
 
-def pagewalk_phase(torch, np, dev) -> dict:
-    from repro_torch.kernels.pagewalk import kernel as K
-    from repro_torch.kernels.pagewalk import ops
+def walk_bytes(torch, tables, coords, fused=None, coord_bytes=None) -> int:
+    """Bytes a two-stage walk of these queries (flat vectors tenant, req,
+    page, want_write) must move: ``coord_bytes`` of coordinates in (13 B a
+    query where each is a vector of its own), 9 B of results out a query,
+    each stage-1 entry it touches in both tables (and in both fused
+    tables), and each stage-2 entry touched by a query that passes stage
+    1 and is not answered by the fused cache."""
+    from repro_torch.indexing import gather_index
     from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
 
+    vs = tables[0]
+    n_t, n_r, n_p = vs.shape
+    n_g = tables[2].shape[1]
+    t, r, p = (gather_index(x, n) for x, n in zip(coords[:3],
+                                                   (n_t, n_r, n_p)))
+    flat1 = (t * n_r + r) * n_p + p
+    need2 = two_stage_translate_ref(*tables, *coords)[2] != 1
+    if fused is not None:
+        need2 &= ~fused[1].reshape(-1)[flat1]
+    tp = gather_index(vs.reshape(-1)[flat1].long().clamp(min=0), n_g)
+    n1 = int(torch.unique(flat1).numel())
+    n2 = int(torch.unique((t * n_g + tp)[need2]).numel())
+    b = flat1.numel()
+    if coord_bytes is None:
+        coord_bytes = b * (3 * 4 + 1)
+    return (coord_bytes + b * (4 + 1 + 4) +
+            n1 * (2 * 4 + (4 + 1 if fused is not None else 0)) + n2 * 4)
+
+
+def plan_walk(torch, dev, tables, plan, fused):
+    """``pagewalk.ops.translate``'s own walk for ``plan``: the kernel's
+    arguments, the bytes it must move, and the flat coordinates (for the
+    byte count and the plain version)."""
+    from repro_torch.kernels.pagewalk.ref import read_coord
+
+    args = (*tables, *plan.coords, plan.outer, plan.inner, *fused)
+    flat = [read_coord(c, plan.outer, plan.inner, dev) for c in plan.coords]
+    flat = [x.to(torch.int32) for x in flat[:3]] + [flat[3].to(torch.bool)]
+    coord_bytes = sum(
+        (plan.outer if c.s_outer else 1) * (plan.inner if c.s_inner else 1) *
+        c.tensor.element_size() for c in plan.coords if c.tensor is not None)
+    return args, walk_bytes(torch, tables, flat, fused, coord_bytes)
+
+
+# aten ops that allocate or make a view and launch nothing on the card
+# (``aten::to`` of a tensor already on the card with its dtype is one; a
+# ``to`` that copies has ``_to_copy``/``copy_`` below it, which are not)
+LAUNCH_FREE_OPS = frozenset({
+    "aten::empty", "aten::empty_strided", "aten::view", "aten::reshape",
+    "aten::_reshape_alias", "aten::expand", "aten::as_strided", "aten::to",
+    "aten::alias", "aten::detach"})
+
+
+def call_ops(torch, fns: dict) -> dict:
+    """For each call in ``fns`` (label -> callable), what it issues, from
+    one ``torch.profiler`` trace on the card:
+
+    * ``launching_ops``: every aten op under the call's
+      ``record_function`` span (nested ops included) that is not in
+      ``LAUNCH_FREE_OPS`` — a kernel, a copy or a scalar made into a
+      tensor.  These are CPU-side events, which need no CUPTI (the CUDA
+      runtime calls under the span are CUPTI's, and are not read);
+    * where the trace holds device events (``traced``), the CUDA kernels
+      and host-to-device copies between the device spin
+      (``torch.cuda._sleep``, a ``spin_kernel``) queued before the call
+      and the next one (the span's own annotation on the device's
+      timeline is not one).
+
+    The trace is taken up to three times, until it holds device events.
+    """
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for k, fn in enumerate(fns.values()):
+                torch.cuda._sleep(1000)
+                with torch.profiler.record_function(f"smoke_call_{k}"):
+                    fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.name.startswith("smoke_call_")),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    spans = {e.name: e for e in prof.events()
+             if e.name.startswith("smoke_call_") and
+             e.device_type == torch.autograd.DeviceType.CPU}
+
+    def launching(e):
+        out = []
+        for c in e.cpu_children:
+            if c.name.startswith("aten::") and c.name not in LAUNCH_FREE_OPS:
+                out.append(c.name)
+            out += launching(c)
+        return out
+
+    calls, names = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if names is not None:
+                calls.append(names)
+            names = []
+        elif names is not None:
+            names.append(e.name)
+    if events and len(calls) != len(fns):
+        raise RuntimeError(f"call_ops: {len(calls)} spans between spins "
+                           f"for {len(fns)} calls")
+    out = {}
+    for k, label in enumerate(fns):
+        if f"smoke_call_{k}" not in spans:
+            raise RuntimeError(f"call_ops: no CPU span for {label}")
+        names = calls[k] if events else []
+        copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
+        out[label] = {
+            "launching_ops": sorted(set(launching(spans[f"smoke_call_{k}"]))),
+            "traced": bool(events),
+            "kernels": len(names) - len(copies),
+            "h2d_copies": sum(n.startswith("Memcpy HtoD") for n in copies),
+            "other_copies": sum(not n.startswith("Memcpy HtoD")
+                                for n in copies),
+            "names": sorted({n[:40] for n in names if n not in copies})}
+    return out
+
+
+def sweep_inputs(torch, np, dev):
+    """The pagewalk phase's seeded tables, its queries at each of
+    ``PAGEWALK_BATCHES`` (the last one every page of every request once,
+    shuffled) and the generator, to draw more from."""
     rng = np.random.default_rng(SEED)
     vs = rng.integers(-1, G, size=(T, R, P), dtype=np.int32)
     perm = rng.integers(0, 4, size=(T, R, P), dtype=np.int32)
@@ -237,7 +389,74 @@ def pagewalk_phase(torch, np, dev) -> dict:
         return [torch.as_tensor(x.astype(np.int32), device=dev)
                 for x in (t, r, p)] + [torch.as_tensor(w, device=dev)]
 
-    qs = {b: queries(b) for b in PAGEWALK_BATCHES}
+    return tables, {b: queries(b) for b in PAGEWALK_BATCHES}, rng
+
+
+def sweep_times(torch, dev, tables, big):
+    """The walk at the table sweep (``big``: every page of every request
+    once, shuffled; B = 262,144), CUDA-event medians with L2 flushed
+    before every call, beside its byte bound, then its decomposition with
+    no new CUDA code: the fixed cost of a one-element kernel; a ``copy_``
+    that moves the same coordinate and result bytes (half read, half
+    written: a yardstick the port never calls); the walk on the same
+    pages in table order; the walk with L2 warm.  Returns the shuffled
+    walk's (kernel, plain version, bound) in ms."""
+    from repro_torch.kernels.pagewalk import kernel as K
+    from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
+
+    n_r, n_p = tables[0].shape[1:]
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    k_ms = time_cuda(lambda: K.two_stage_translate_kernel(*tables, *big),
+                     torch, flush=flush)
+    k_warm_ms = time_cuda(lambda: K.two_stage_translate_kernel(*tables, *big),
+                          torch)
+    plain_ms = time_cuda(lambda: two_stage_translate_ref(*tables, *big),
+                         torch, flush=flush)
+    nbytes = walk_bytes(torch, tables, big)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b = big[0].numel()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    phase("pagewalk", B=b, kernel_us=f"{k_ms * 1e3:.2f}",
+          kernel_warm_l2_us=f"{k_warm_ms * 1e3:.2f}",
+          plain_us=f"{plain_ms * 1e3:.2f}", bytes=nbytes,
+          bound_us=f"{bound_ms * 1e3:.3f}",
+          grid=K.grid_size(b, n_sms) if hasattr(K, "grid_size") else None)
+
+    one = torch.zeros(1, device=dev)
+    fixed_ms = time_cuda(lambda: one.add_(1), torch, flush=flush)
+    src = torch.empty(b * (3 * 4 + 1 + 4 + 1 + 4) // 2, dtype=torch.uint8,
+                      device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_cuda(lambda: dst.copy_(src), torch, flush=flush)
+    flat = torch.arange(b, device=dev)
+    ordered = [x.to(torch.int32) for x in
+               (flat // (n_r * n_p), (flat // n_p) % n_r, flat % n_p)] + [
+        big[3]]
+    for x, y in zip(K.two_stage_translate_kernel(*tables, *ordered),
+                    two_stage_translate_ref(*tables, *ordered)):
+        if not torch.equal(x, y):
+            raise RuntimeError("pagewalk in table order differs from the "
+                               "plain version")
+    ordered_ms = time_cuda(
+        lambda: K.two_stage_translate_kernel(*tables, *ordered), torch,
+        flush=flush)
+    phase("pagewalk", decomposition=f"B={b}",
+          one_element_kernel_us=f"{fixed_ms * 1e3:.2f}",
+          copy_same_bytes_us=f"{copy_ms * 1e3:.2f}",
+          copy_bytes=2 * src.numel(),
+          table_order_us=f"{ordered_ms * 1e3:.2f}",
+          shuffled_us=f"{k_ms * 1e3:.2f}",
+          warm_l2_shuffled_us=f"{k_warm_ms * 1e3:.2f}")
+    return k_ms, plain_ms, bound_ms
+
+
+def pagewalk_phase(torch, np, dev) -> dict:
+    from repro_torch.kernels.pagewalk import kernel as K
+    from repro_torch.kernels.pagewalk import ops
+    from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
+
+    tables, qs, rng = sweep_inputs(torch, np, dev)
     big = qs[T * R * P]
     n = PAGEWALK_OUT_OF_RANGE
     wild = [rng.integers(-2 * d, 2 * d, n).astype(np.int32)
@@ -246,6 +465,10 @@ def pagewalk_phase(torch, np, dev) -> dict:
         c[0] = v
     qs["out-of-range"] = [torch.as_tensor(x, device=dev) for x in wild] + [
         torch.as_tensor(rng.integers(0, 2, n).astype(bool), device=dev)]
+
+    # bases 4 bytes (coordinates) and 1 byte (want_write) past an aligned
+    # one, and a ragged tail: the kernel's scalar path
+    qs["unaligned"] = [x[1:] for x in big]
 
     # ---- the path: the entry point a user calls, counts read around it --
     K.two_stage_translate_kernel.launches = 0
@@ -273,31 +496,8 @@ def pagewalk_phase(torch, np, dev) -> dict:
             raise RuntimeError("pagewalk path output differs from the "
                                "plain version")
 
-    # ---- time at the path's shape, L2 flushed before every call ----------
-    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_
-    k_ms = time_cuda(lambda: K.two_stage_translate_kernel(*tables, *big),
-                     torch, flush=flush)
-    k_warm_ms = time_cuda(lambda: K.two_stage_translate_kernel(*tables, *big),
-                          torch)
-    plain_ms = time_cuda(lambda: two_stage_translate_ref(*tables, *big),
-                         torch, flush=flush)
-    # bytes this run's data needs: coordinates in (3 x int32 + bool), results
-    # out (int32 + bool + int32), each touched stage-1 entry of both tables,
-    # each touched stage-2 entry
-    t, r, p, w = (x.long() for x in big)
-    flat1 = (t * R + r) * P + p
-    s1 = two_stage_translate_ref(*tables, *big)[2] == 1
-    tp = tables[0].view(-1)[flat1].clamp(0, G - 1)
-    n1 = int(torch.unique(flat1).numel())
-    n2 = int(torch.unique((t * G + tp)[~s1]).numel())
-    b = big[0].numel()
-    nbytes = b * (3 * 4 + 1) + b * (4 + 1 + 4) + n1 * 2 * 4 + n2 * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    phase("pagewalk", B=b, kernel_us=f"{k_ms * 1e3:.2f}",
-          kernel_warm_l2_us=f"{k_warm_ms * 1e3:.2f}",
-          plain_us=f"{plain_ms * 1e3:.2f}", bytes=nbytes,
-          bound_us=f"{bound_ms * 1e3:.3f}", own_path_launches=launches)
+    phase("pagewalk", own_path_launches=launches)
+    k_ms, plain_ms, bound_ms = sweep_times(torch, dev, tables, big)
     return {"name": "pagewalk", "route": "cuda",
             "source": "src/repro_torch/csrc/pagewalk.cu",
             "replaces": "src/repro/kernels/pagewalk/kernel.py:53",
@@ -425,24 +625,19 @@ def attention_fp32_checks(torch, np, dev, PAK, paged_attention_ref) -> float:
     return worst
 
 
-def vmem_phase(torch, np, dev) -> list:
-    from repro_torch.core.vmem import allocator as AL
+def mapped_cache(torch, np, dev):
+    """The vmem phase's cache, its 8 x 16 requests mapped by
+    ``ensure_mapped`` below each seeded length + 1 (the control plane,
+    ``pagewalk`` under ``translate``): (kv, lengths, tenant_of, req_of,
+    rng)."""
     from repro_torch.core.vmem import kvcache as KC
-    from repro_torch.core.vmem import page_table as PT
-    from repro_torch.kernels.paged_attention import kernel as PAK
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.kernels.pagewalk import kernel as PWK
-    from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
 
     B = VM_TENANTS * VM_REQS
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(1, VM_PAGES * VM_PAGE, B)        # [1, 4095]
     tenant_of = [b // VM_REQS for b in range(B)]
     req_of = [b % VM_REQS for b in range(B)]
-
-    # ---- 1-2. the cache and its control plane ----------------------------
     kv = KC.PagedKVCache.create(VM_SLOTS, VM_PAGE, VM_KV, VM_HD, VM_TENANTS,
                                 VM_REQS, VM_PAGES, VM_TENANT_PAGES,
                                 device=dev)
@@ -461,6 +656,127 @@ def vmem_phase(torch, np, dev) -> list:
           wall_s=f"{time.perf_counter() - t0:.3f}",
           pagewalk_launches=PWK.two_stage_translate_kernel.launches,
           slots_in_use=VM_SLOTS - int(kv.pool.top))
+    return kv, lengths, tenant_of, req_of, rng
+
+
+def consumer_walks(torch, dev, kv, lengths, tenant_of, req_of):
+    """The walk at its consumers' shapes on the vmem tables, L2 flushed,
+    each beside its byte bound and held bit-exact against its plain
+    version: one request's 256 pages (the longest request:
+    ``translate_block``'s call) and the batched decode's [B, 1] x [1,
+    pages] coordinates.  Each shape is walked by
+    ``two_stage_translate_kernel`` on the coordinates materialised as
+    vectors (what a tree before ``translate_kernel`` launched, its
+    ``translate`` selecting the fused cache in torch), and, where the tree
+    has it, by ``translate_kernel`` on ``translate``'s own plan with the
+    fused cache (what its ``translate`` launches; also held against the
+    whole call's answer).  Then the whole ``translate_block`` call and
+    the whole ``translate`` of ``ensure_mapped`` (Python ints, no fused
+    cache): device time from one event pair (a ~10 ms spin ahead of it,
+    so the host has queued the call), host time a call (the mean of 200
+    calls ended by one synchronise), the walks it launches and what it
+    issues (``call_ops``).  Returns (kernel, plain version, bound) in ms
+    of the walk the tree's ``translate`` launches at ``translate_block``'s
+    shape, and each whole call's counts."""
+    from repro_torch.core.vmem import page_table as PT
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
+
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    tb = kv.tables
+    tabs = (tb.vs_table, tb.vs_perm, tb.g_table)
+    lb = int(lengths.argmax())
+    t_b, r_b = tenant_of[lb], req_of[lb]
+    cols = torch.arange(VM_PAGES, dtype=torch.int32, device=dev)
+    tt = torch.as_tensor(tenant_of, dtype=torch.int32, device=dev)[:, None]
+    rr = torch.as_tensor(req_of, dtype=torch.int32, device=dev)[:, None]
+    shapes = {"translate_block": ((t_b, r_b, range(VM_PAGES)),
+                                  PT.translate_block(tb, t_b, r_b, VM_PAGES)),
+              "batched decode": ((tt, rr, cols[None, :]),
+                                 PT.translate(tb, tt, rr, cols[None, :]))}
+    times = {}
+    for label, (coords, whole) in shapes.items():
+        flat = [torch.as_tensor(x, dtype=torch.int32, device=dev)
+                .expand(whole.slot.shape).reshape(-1).contiguous()
+                if not isinstance(x, range) else cols for x in coords]
+        flat.append(torch.zeros_like(flat[0], dtype=torch.bool))
+        walks = {"two_stage_translate_kernel on materialised vectors": (
+            lambda f=flat: PWK.two_stage_translate_kernel(*tabs, *f),
+            lambda f=flat: two_stage_translate_ref(*tabs, *f),
+            walk_bytes(torch, tabs, flat))}
+        if hasattr(PWK, "translate_kernel"):
+            from repro_torch.kernels.pagewalk import ops as PWO
+            from repro_torch.kernels.pagewalk.ref import translate_ref
+
+            plan = PWO.plan_coords(*coords, False, dev)
+            args, nbytes = plan_walk(torch, dev, tabs, plan,
+                                     (tb.fused, tb.fused_ok))
+            walks[f"translate_kernel {plan.outer}x{plan.inner} fused"] = (
+                lambda: PWK.translate_kernel(*args),
+                lambda: translate_ref(*args), nbytes)
+            for x, y, z in zip(PWK.translate_kernel(*args),
+                               translate_ref(*args), whole):
+                if not (torch.equal(x, y) and torch.equal(x, z.reshape(-1))):
+                    raise RuntimeError(f"pagewalk at {label}'s plan differs "
+                                       f"from its plain version or from "
+                                       f"the whole call")
+        for walk, (fn, plain, nbytes) in walks.items():
+            if not all(torch.equal(x, y) for x, y in zip(fn(), plain())):
+                raise RuntimeError(f"{walk} at {label} differs from its "
+                                   f"plain version")
+            k_ms = time_cuda(fn, torch, flush=flush)
+            plain_ms = time_cuda(plain, torch, flush=flush)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            phase("vmem", pagewalk_shape=label, B=whole.slot.numel(),
+                  walk=walk, kernel_us=f"{k_ms * 1e3:.2f}",
+                  plain_us=f"{plain_ms * 1e3:.2f}", bytes=nbytes,
+                  bound_us=f"{bound_ms * 1e3:.3f}")
+        # the last one is the walk this tree's translate launches
+        times[label] = (k_ms, plain_ms, bound_ms)
+
+    calls = {"translate_block": lambda: PT.translate_block(
+                 tb, t_b, r_b, VM_PAGES),
+             "ensure_mapped translate": lambda: PT.translate(
+                 tb, t_b, r_b, 3, use_fused=False)}
+    ops_by_call = call_ops(torch, calls)
+    for label, fn in calls.items():
+        before = PWK.two_stage_translate_kernel.launches
+        fn()
+        torch.cuda.synchronize()
+        ops = ops_by_call[label]
+        ops["walks"] = PWK.two_stage_translate_kernel.launches - before
+        c_ms = time_cuda(fn, torch, flush=flush, spin=20_000_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        phase("vmem", call=label, device_us=f"{c_ms * 1e3:.2f}",
+              host_us=f"{host_us:.1f}", walks=ops["walks"],
+              launching_ops="|".join(ops["launching_ops"]) or None,
+              traced=ops["traced"], cuda_kernels=ops["kernels"],
+              h2d_copies=ops["h2d_copies"], other_copies=ops["other_copies"],
+              kernel_names="|".join(ops["names"]))
+    return times["translate_block"], ops_by_call
+
+
+def vmem_phase(torch, np, dev) -> list:
+    from repro_torch.core.vmem import allocator as AL
+    from repro_torch.core.vmem import kvcache as KC
+    from repro_torch.core.vmem import page_table as PT
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.kernels.pagewalk import ops as PWO
+    from repro_torch.kernels.pagewalk.ref import (translate_ref,
+                                                  two_stage_translate_ref)
+
+    B = VM_TENANTS * VM_REQS
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kv, lengths, tenant_of, req_of, rng = mapped_cache(torch, np, dev)
 
     # ---- 3. seeded bf16 data in one write (it stands in for weights) -----
     gen = torch.Generator(device=dev)
@@ -550,6 +866,42 @@ def vmem_phase(torch, np, dev) -> list:
                            "route")
     phase("vmem", pagewalk_decode_coords=B * VM_PAGES, bit_exact=True,
           page_map_bit_exact=True)
+
+    path_times, ops_by_call = consumer_walks(torch, dev, kv, lengths,
+                                             tenant_of, req_of)
+    # each translate call is one walk, issues no aten op that launches a
+    # kernel or copies (CPU-side events), and, where the profiler sees the
+    # card, one CUDA kernel and no host-to-device copy
+    for label, ops in ops_by_call.items():
+        if ops["walks"] != 1 or ops["launching_ops"] or (ops["traced"] and (
+                ops["kernels"] != 1 or ops["h2d_copies"] != 0)):
+            raise RuntimeError(f"{label} on the card is not one launch: "
+                               f"{ops}")
+
+    # the fused entry (translate's whole function) against its plain
+    # version on the same arguments at the decode path's coordinates
+    # ([B, 1] x [1, pages]: stride-0 coordinates), on the path's fused
+    # cache (filled by ensure_mapped below each length) and on a seeded
+    # one over a random half of the entries
+    plan = PWO.plan_coords(tt, rr, cols[None, :], False, dev)
+    tabs = (kv.tables.vs_table, kv.tables.vs_perm, kv.tables.g_table)
+    fused_seeded = (
+        torch.randint(-1, VM_SLOTS, kv.tables.fused.shape, generator=gen,
+                      device=dev, dtype=torch.int32),
+        torch.rand(kv.tables.fused.shape, generator=gen, device=dev) < 0.5)
+    for label, fz in (("path", (kv.tables.fused, kv.tables.fused_ok)),
+                      ("seeded half", fused_seeded)):
+        args = (*tabs, *plan.coords, plan.outer, plan.inner, *fz)
+        before = PWK.two_stage_translate_kernel.launches
+        got = PWK.translate_kernel(*args)
+        want = translate_ref(*args)
+        if PWK.two_stage_translate_kernel.launches != before + 1 or not all(
+                torch.equal(x, y) for x, y in zip(got, want)):
+            raise RuntimeError(f"the fused entry ({label} cache) differs "
+                               f"from its plain version")
+        phase("vmem", fused_entry=label, outer=plan.outer, inner=plan.inner,
+              strides=[c[2:] for c in plan.coords],
+              hits=int(fz[1].sum()), bit_exact=True)
     lens = torch.as_tensor(lengths + 1, dtype=torch.int32, device=dev)
     got = pa_ops.paged_attention(q, kv.k_pool, kv.v_pool, page_map, lens,
                                  scale, device=dev)
@@ -694,7 +1046,7 @@ def vmem_phase(torch, np, dev) -> list:
     phase("vmem", evict_tenant=0, invariants=inv, former_pages_fault=True,
           slots_in_use=VM_SLOTS - int(kv.pool.top))
 
-    return [pw_launches, {
+    return [pw_launches, path_times, {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:75",
@@ -1177,18 +1529,48 @@ def model_phase(torch, np, dev) -> dict:
             "library_ms": kernel["library_ms"]}
 
 
-def main() -> int:
+def walk_times(torch, np, dev, smi: str) -> int:
+    """``--walk-times``: only the pagewalk timings of phases 3 and 5 (the
+    table sweep and its decomposition; the consumers' shapes and the
+    whole translate calls), for the package ``--src`` names."""
+    from repro_torch.kernels import build
+
+    info = build.compile_source("pagewalk")
+    phase("build", kernel="pagewalk", seconds=f"{info['seconds']:.2f}")
+    for line in ptxas_lines(info["log"]):
+        print(f"  ptxas: {line}", flush=True)
+    tables, qs, _ = sweep_inputs(torch, np, dev)
+    sweep_times(torch, dev, tables, qs[T * R * P])
+    consumer_walks(torch, dev, *mapped_cache(torch, np, dev)[:4])
+    print(smi, flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--walk-times", action="store_true",
+                    help="only the pagewalk timings (no checks of the "
+                    "other phases, no result line)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is run (so "
+                    "two checkouts can be timed in turns in one call)")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
+    if args.walk_times:
+        phase("walk-times", src=Path(args.src).resolve(),
+              torch=torch.__version__)
+        print(smi, flush=True)
+        return walk_times(torch, np, dev, smi)
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0])
     print(smi, flush=True)
@@ -1206,9 +1588,11 @@ def main() -> int:
 
     walk = pagewalk_phase(torch, np, dev)
     hext_phase(torch, dev)
-    walk_launches, attention = vmem_phase(torch, np, dev)
-    # pagewalk's path is now its consumer's: the vmem decode path
+    walk_launches, path_times, attention = vmem_phase(torch, np, dev)
+    # pagewalk's path is its consumer's, the vmem decode path: its launches
+    # there, and its times at the path's call (translate_block's walk)
     walk["launches"] = walk_launches
+    walk["ms"], walk["plain_ms"], walk["bound_ms"] = path_times
     torch.cuda.empty_cache()
     flash = model_phase(torch, np, dev)
     kernels = [walk, attention, flash]

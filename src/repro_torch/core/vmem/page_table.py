@@ -9,12 +9,13 @@ Mirrors the H extension:
 Entries carry R/W permission bits; the fused cache (logical → host) is the
 TLB analogue and is invalidated by ``hfence()`` after a stage-2 edit.
 
-``translate``'s walk goes through ``kernels.pagewalk.ops.
-two_stage_translate``: on CUDA tables it launches the ``pagewalk`` kernel,
-on CPU tables it runs that kernel's plain version.  The fused-cache select
-around it is plain torch.  Every index follows JAX's rules
-(:mod:`repro_torch.indexing`), so out-of-range coordinates give
-the reference's answer.  Tables are edited functionally: each edit returns
+``translate`` is one call of ``kernels.pagewalk.ops.translate``: on CUDA
+tables one launch of the ``pagewalk`` kernel does the broadcast, the walk
+and the fused-cache select (Python int and bool coordinates go in as
+kernel arguments, so no host-to-device copy); on CPU tables that
+kernel's plain version runs on the same arguments.  Every index follows
+JAX's rules (:mod:`repro_torch.indexing`), so out-of-range coordinates
+give the reference's answer.  Tables are edited functionally: each edit returns
 a new ``TwoStageTable`` (they are small), as in JAX.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.indexing import put, take
+from repro_torch.indexing import put
 from repro_torch.device import resolve
 from repro_torch.kernels.pagewalk import ops as pagewalk
 
@@ -89,24 +90,11 @@ def translate(t: TwoStageTable, tenant, req, page, acc_write=False,
     """Translate (tenant, request, logical page) → host slot.
 
     The coordinates and ``acc_write`` (a bool or a bool array) broadcast
-    against each other: scalars or any leading batch shape.  They are
-    flattened for the walk and the results reshaped back."""
-    dev = t.vs_table.device
-    coords = [torch.as_tensor(x, device=dev).to(torch.int32)
-              for x in (tenant, req, page)]
-    want = torch.as_tensor(acc_write, device=dev).to(torch.bool)
-    shape = torch.broadcast_shapes(*(x.shape for x in coords), want.shape)
-    tt, rr, pp, ww = (x.expand(shape).reshape(-1).contiguous()
-                      for x in coords + [want])
-    slot, fault, stage = pagewalk.two_stage_translate(
-        t.vs_table, t.vs_perm, t.g_table, tt, rr, pp, ww, device=dev)
-    if use_fused:
-        hit = take(t.fused_ok, tt, rr, pp)
-        slot = torch.where(hit, take(t.fused, tt, rr, pp), slot)
-        fault = fault & ~hit
-        stage = torch.where(hit, 0, stage)
-    return Translation(slot=slot.reshape(shape), fault=fault.reshape(shape),
-                       stage=stage.reshape(shape))
+    against each other: scalars, ``range``s or any leading batch shape."""
+    fused = (t.fused, t.fused_ok) if use_fused else (None, None)
+    return Translation(*pagewalk.translate(
+        t.vs_table, t.vs_perm, t.g_table, tenant, req, page, acc_write,
+        *fused))
 
 
 def map_stage1(t: TwoStageTable, tenant, req, page, tenant_page,
@@ -151,6 +139,6 @@ def fill_fused(t: TwoStageTable, tenant, req, page) -> TwoStageTable:
 def translate_block(t: TwoStageTable, tenant, req, n_pages: int,
                     acc_write=False) -> Translation:
     """Translate all logical pages [0, n_pages) of one request — the decode
-    path (the whole per-request page list in one walk)."""
-    pages = torch.arange(n_pages, dtype=torch.int32, device=t.vs_table.device)
-    return translate(t, tenant, req, pages, acc_write=acc_write)
+    path (the whole per-request page list in one walk; the pages are the
+    walk's own index, so no page vector is made)."""
+    return translate(t, tenant, req, range(n_pages), acc_write=acc_write)

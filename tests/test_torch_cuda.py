@@ -33,7 +33,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.pagewalk import kernel as K
 from repro_torch.kernels.pagewalk import ops
-from repro_torch.kernels.pagewalk.ref import two_stage_translate_ref
+from repro_torch.kernels.pagewalk.ref import (Coord, translate_ref,
+                                              two_stage_translate_ref)
 from repro_torch.models import transformer as TF
 
 pytestmark = pytest.mark.cuda
@@ -170,7 +171,7 @@ def test_fleet_ticks_on_card_match_cpu(cuda):
             _assert_same(a, b, f"tick {tick}")
 
 
-@pytest.mark.parametrize("B", [1, 7, 512, 513, 262144])
+@pytest.mark.parametrize("B", [1, 3, 5, 7, 512, 513, 262144])
 def test_pagewalk_kernel_matches_ref(cuda, B):
     rng = np.random.default_rng(B)
     T_, R, P, G = 8, 64, 512, 4096
@@ -216,6 +217,187 @@ def test_pagewalk_kernel_out_of_range_coordinates(cuda):
     got = K.two_stage_translate_kernel(*tables, *q)
     for x, y in zip(got, two_stage_translate_ref(*tables, *q)):
         assert torch.equal(x, y)
+
+
+def _walk_tables(rng, dims, cuda, offset=0):
+    """Seeded tables on the card; ``offset`` elements into a larger buffer
+    (a table base that is not 16-byte aligned)."""
+    T_, R, P, G = dims
+    out = []
+    for lo, hi, shape in ((-1, G + 2, (T_, R, P)), (0, 4, (T_, R, P)),
+                          (-1, 4 * G, (T_, G))):
+        n = int(np.prod(shape))
+        buf = torch.as_tensor(rng.integers(lo, hi, n + offset,
+                                           dtype=np.int32), device=cuda)
+        out.append(buf[offset:].view(shape))
+    return out
+
+
+def _walk_queries(rng, B, dims, cuda, offset=0):
+    """Coordinates in [-2n, 2n) and want_write, each ``offset`` elements
+    into its buffer."""
+    q = [torch.as_tensor(rng.integers(-2 * n, 2 * n, B + offset,
+                                      dtype=np.int32), device=cuda)[offset:]
+         for n in dims[:3]]
+    return q + [torch.as_tensor(rng.integers(0, 2, B + offset).astype(bool),
+                                device=cuda)[offset:]]
+
+
+@pytest.mark.parametrize("B", [1, 5, 513, 4099, 262143])
+def test_pagewalk_kernel_unaligned_bases(cuda, B):
+    """Every coordinate 4 bytes and want_write 1 byte past an aligned
+    base (and the tables 4 bytes past one), with a ragged length."""
+    rng = np.random.default_rng(B)
+    dims = (8, 64, 512, 4096)
+    tables = _walk_tables(rng, dims, cuda, offset=1)
+    q = _walk_queries(rng, B, dims, cuda, offset=1)
+    assert all(x.data_ptr() % 16 == 4 for x in q[:3] + tables)
+    got = K.two_stage_translate_kernel(*tables, *q)
+    for x, y in zip(got, two_stage_translate_ref(*tables, *q)):
+        assert torch.equal(x, y)
+
+
+def test_pagewalk_kernel_large_tables(cuda):
+    """Tables of 32 MiB (16 x 256 x 1024 pages, beyond what the L2 keeps
+    for long) and a grid that strides: against the plain version."""
+    rng = np.random.default_rng(12)
+    dims = (16, 256, 1024, 4096)
+    tables = _walk_tables(rng, dims, cuda)
+    q = _walk_queries(rng, 1 << 20, dims, cuda)
+    assert sum(x.nbytes for x in tables) > 32 << 20
+    for x, y in zip(K.two_stage_translate_kernel(*tables, *q),
+                    two_stage_translate_ref(*tables, *q)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("rows", [128, 1100])
+def test_translate_fused_entry_stride0_coordinates(cuda, rows):
+    """The fused entry at [B, 1] x [1, P] coordinates (stride 0 on one
+    side each), with a fused cache over a random third of the entries:
+    bit-equal to its plain version on the same arguments, and to the CPU
+    route of ``ops.translate``; 1100 rows (284,900 queries) make the grid
+    stride."""
+    rng = np.random.default_rng(13)
+    dims = (8, 16, 256, 4096)
+    tables = _walk_tables(rng, dims, cuda)
+    fused = torch.as_tensor(rng.integers(-1, 9999, dims[:3], dtype=np.int32),
+                            device=cuda)
+    fused_ok = torch.as_tensor(rng.random(dims[:3]) < 0.3, device=cuda)
+    t = torch.as_tensor(rng.integers(-9, 9, (rows, 1), dtype=np.int32),
+                        device=cuda)
+    r = torch.as_tensor(rng.integers(-17, 17, (rows, 1), dtype=np.int32),
+                        device=cuda)
+    pages = torch.arange(-3, 256, dtype=torch.int32, device=cuda)[None]
+    acc = torch.as_tensor(rng.random((rows, 1)) < 0.5, device=cuda)
+    plan = ops.plan_coords(t, r, pages, acc, cuda)
+    assert (plan.outer, plan.inner) == (rows, 259)
+    assert [c[2:] for c in plan.coords] == [(1, 0), (1, 0), (0, 1), (1, 0)]
+    args = (*tables, *plan.coords, plan.outer, plan.inner, fused, fused_ok)
+    before = K.two_stage_translate_kernel.launches
+    got = K.translate_kernel(*args)
+    assert K.two_stage_translate_kernel.launches == before + 1
+    for x, y in zip(got, translate_ref(*args)):
+        assert torch.equal(x, y)
+    cpu = ops.translate(*[x.cpu() for x in tables], t.cpu(), r.cpu(),
+                        pages.cpu(), acc.cpu(), fused.cpu(), fused_ok.cpu())
+    card = ops.translate(*tables, t, r, pages, acc, fused, fused_ok)
+    for x, y in zip(card, cpu):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_translate_kernel_rejects_strides_past_storage(cuda):
+    """A coordinate whose strides would read past its storage, or go
+    backwards, is refused before any pointer reaches the kernel."""
+    tables = _walk_tables(np.random.default_rng(14), (2, 3, 4, 5), cuda)
+    x = torch.zeros(12, dtype=torch.int32, device=cuda)
+    val = Coord(None, 0, 0, 0)
+    K.translate_kernel(*tables, Coord(x, 0, 4, 1), val, val, val, 3, 4)
+    for bad in (Coord(x, 0, 5, 1), Coord(x[1:], 0, 4, 1),
+                Coord(x, 0, -1, 1)):
+        with pytest.raises(ValueError, match="storage"):
+            K.translate_kernel(*tables, bad, val, val, val, 3, 4)
+
+
+# aten ops that allocate or make a view and launch nothing on the card
+# (a ``to`` that copies has ``_to_copy``/``copy_`` below it)
+_LAUNCH_FREE_OPS = {"aten::empty", "aten::empty_strided", "aten::view",
+                    "aten::reshape", "aten::_reshape_alias", "aten::expand",
+                    "aten::as_strided", "aten::to", "aten::alias",
+                    "aten::detach"}
+
+
+def _launching_ops(event):
+    """The aten ops under a profiler event, nested ones included, that
+    launch a kernel, copy or make a scalar into a tensor (the CUDA runtime
+    calls under it come from CUPTI and are not read)."""
+    out = []
+    for child in event.cpu_children:
+        if child.name.startswith("aten::") and \
+                child.name not in _LAUNCH_FREE_OPS:
+            out.append(child.name)
+        out += _launching_ops(child)
+    return out
+
+
+def test_translate_is_one_launch(cuda):
+    """Every form of translate the port calls — translate_block, the
+    control plane's Python ints, write_token's 0-d int64 page, the batched
+    decode's [B, 1] x [1, P] — is one walk on the card, issues no aten op
+    that launches a kernel or copies (CPU-side profiler events, which need
+    no CUPTI), and, where the profiler sees the card, no other kernel and
+    no host-to-device copy; and it equals the CPU route."""
+    tabs, args = {}, {}
+    for dev in ("cpu", cuda):
+        # made before the profiled calls: making them launches kernels
+        args[str(dev)] = (
+            torch.tensor(37, device=dev) // 16,
+            torch.full((4, 1), 1, dtype=torch.int32, device=dev),
+            torch.arange(4, dtype=torch.int32, device=dev)[:, None],
+            torch.arange(16, dtype=torch.int32, device=dev)[None])
+        kv = KC.PagedKVCache.create(
+            n_slots=64, page_size=16, n_kv_heads=1, head_dim=8,
+            n_tenants=2, reqs_per_tenant=4, logical_pages=16,
+            tenant_pages=32, dtype=torch.float32, device=dev)
+        for req in range(4):
+            for p in range(1 + 3 * req):
+                kv, ok = KC.ensure_mapped(kv, 1, req, p)
+                assert ok
+        tabs[str(dev)] = kv.tables
+    forms = {
+        "translate_block": lambda t, a: PT.translate_block(t, 1, 2, 16),
+        "ints": lambda t, a: PT.translate(t, 1, 3, 5, use_fused=False),
+        "int64 page": lambda t, a: PT.translate(t, 1, 0, a[0],
+                                                acc_write=True),
+        "batched": lambda t, a: PT.translate(t, *a[1:]),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, form in forms.items():
+        want = form(tabs["cpu"], args["cpu"])
+        before = K.two_stage_translate_kernel.launches
+        got = form(tabs[str(cuda)], args[str(cuda)])
+        assert K.two_stage_translate_kernel.launches == before + 1, name
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y), name
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("translate_call"):
+                form(tabs[str(cuda)], args[str(cuda)])
+            torch.cuda.synchronize()
+        span = [e for e in prof.events() if e.name == "translate_call" and
+                e.device_type == torch.autograd.DeviceType.CPU]
+        assert len(span) == 1, name
+        assert not _launching_ops(span[0]), (name, _launching_ops(span[0]))
+        # the span's own annotation on the device's timeline is no kernel
+        dev_events = [e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and
+                      e.name != "translate_call"]
+        if dev_events:
+            assert len([n for n in dev_events
+                        if not n.startswith(("Memcpy", "Memset"))]) == 1, \
+                (name, dev_events)
+            assert not [n for n in dev_events
+                        if n.startswith("Memcpy HtoD")], (name, dev_events)
 
 
 def _attention_inputs(rng, B, H, KV, hd, page, n_pages, dtype, cuda):

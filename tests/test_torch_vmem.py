@@ -340,6 +340,78 @@ def test_translate_scalar_acc_write_python_bool():
                 snap(PT.translate_block(pt, -1, 2, 5)))
 
 
+# ---------------------------------------------------------------------------
+# translate as one walk: the coordinates as the kernel takes them (values,
+# ranges, strided tensors over an [outer, inner] grid, a materialised 3-d
+# broadcast), against JAX's translate on tables after each kind of edit
+# ---------------------------------------------------------------------------
+
+def _walk_coords(rng):
+    """(tenant, req, page, acc_write) in the port's forms, by case."""
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.as_tensor(rng.integers(lo, hi, shape)).to(dtype)
+    base = ints(-8, 8, (3, 12))
+    return {
+        "scalar x page range": (1, -1, range(-3, 9), False),
+        "scalar x stepped range": (-1, 2, range(0, 10, 2), True),
+        "column x row": (ints(-6, 6, (4, 1)), ints(-8, 8, (4, 1)),
+                         ints(-10, 10, (1, 5)),
+                         torch.as_tensor(rng.random((4, 5)) < 0.5)),
+        "3-d materialised": (ints(-6, 6, (2, 1, 3)), ints(-8, 8, (1, 4, 1)),
+                             ints(-10, 10, (2, 4, 3)), False),
+        "out of range": (ints(-6, 6, (9,)), ints(-8, 8, (9,)),
+                         ints(-10, 10, (9,)),
+                         torch.as_tensor(rng.random(9) < 0.5)),
+        "strided views": (base[1:, ::2], base[0, 1::2], base[1:, 1:2],
+                          torch.as_tensor(rng.random(7) < 0.5)[1:]),
+        "int64 0-d": (torch.tensor(-1), 2, torch.tensor(13), True),
+        "numpy scalars": (np.int32(2), np.int64(-1),
+                          np.arange(-2, 7, dtype=np.int32), np.bool_(True)),
+    }
+
+
+def _to_jax(x):
+    if isinstance(x, range):
+        return jnp.arange(x.start, x.stop, x.step, dtype=jnp.int32)
+    if isinstance(x, torch.Tensor):
+        return jnp.asarray(x.numpy())
+    return x
+
+
+def _edited_tables(s, state):
+    """Seeded random tables, then (cumulatively, up to ``state``) stage-1
+    edits, a fused fill and an hfence of one tenant, on one side."""
+    t = s.PT.TwoStageTable(**{k: s.arr(v) for k, v in
+                              _random_tables(np.random.default_rng(5))
+                              .items()})
+    steps = ("random", "map_stage1", "fill_fused", "hfence")
+    if steps.index(state) >= 1:
+        t = s.PT.map_stage1(t, 1, 2, 3, 4)
+        t = s.PT.map_stage1(t, 0, -1, 4, 2, perm=1)
+    if steps.index(state) >= 2:
+        t = s.PT.fill_fused(t, s.arr([0, 1, 2, 2, -1]), s.arr([0, 1, 3, -1, 2]),
+                            s.arr([4, 3, 0, 1, -1]))
+    if steps.index(state) >= 3:
+        t = s.PT.hfence(t, 1)
+    return t
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+@pytest.mark.parametrize("state", ["random", "map_stage1", "fill_fused",
+                                   "hfence"])
+@pytest.mark.parametrize("case", list(_walk_coords(np.random.default_rng(0))))
+def test_translate_one_walk_matches_jax(case, state, use_fused):
+    coords = _walk_coords(np.random.default_rng(21))[case]
+    jt, pt = _edited_tables(Side(False), state), _edited_tables(Side(True),
+                                                                state)
+    assert_same(snap(jt), snap(pt), "tables")
+    want = JPT.translate(jt, *map(_to_jax, coords[:3]),
+                         acc_write=_to_jax(coords[3]), use_fused=use_fused)
+    got = PT.translate(pt, *coords[:3], acc_write=coords[3],
+                       use_fused=use_fused)
+    assert_same(snap(want), snap(got))
+
+
 def test_table_edits_with_out_of_range_coordinates():
     """map/unmap/fill/hfence scatter with JAX's rule: a negative coordinate
     wraps once, one still out of range drops the write."""

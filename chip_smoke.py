@@ -19,10 +19,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  bound, with its decomposition (the fixed cost of a
                  one-element kernel, a copy_ of the same bytes, the walk
                  in table order and with L2 warm) and its grid;
-4. hext        — ``Fleet.boot`` of sha, crc32, basicmath, stringsearch and
-                 fft x {native, guest} on the card (10 harts, 256 KiB each)
-                 run to completion; every counter of every hart must equal
-                 ``benchmarks/results/hext_runs.json`` (read, never written);
+4. hext        — (run last, after phase 6, so no trace follows a traced
+                 CUDA graph) the simulator's run loop on the card: (a) sha,
+                 crc32,
+                 basicmath, stringsearch and fft x {native, guest} (10
+                 harts, 256 KiB each) for 512 ticks on the eager engine
+                 (host gates) and on the graph engine (device gates, one
+                 CUDA graph) at 1, 8 and 32 ticks a replay: the whole
+                 state of every hart, memory included, must be equal, and
+                 each engine's ticks/s and the capture seconds are
+                 printed; (b) all 9 workloads x {native, guest} as one
+                 18-hart fleet on the default engine (it must be
+                 ``graph``), snapshot after 12,288 ticks, restored onto the
+                 card (equal to the saved state) and run to completion;
+                 (c) the five short workloads' 1guest-preempt column.
+                 Every ``HEXT_FIELDS`` field of every hart must equal
+                 ``benchmarks/results/hext_runs.json`` (read, never
+                 written); walls, lockstep and hart ticks/s, and the
+                 device idle share of one profiled chunk are printed;
 5. vmem        — the two-stage paged KV cache at one attention layer of
                  Qwen3-30B-A3B (H=32, KV=4, hd=128, bf16 pools of 32768
                  slots x 16 tokens, 512 MiB each): 8 tenants x 16 requests
@@ -80,6 +94,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  times are those of the path's call, translate_block's
                  walk).
 
+``--hext-matrix`` runs only the hext columns that phase 4 leaves out (the
+long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
+all nine, up to 118,264 ticks), each held to the goldens, and prints no
+result line.
+
 ``--walk-times [--src DIR]`` runs only the pagewalk timings of phases 3
 and 5 for the ``repro_torch`` under ``DIR`` (default: this checkout's
 ``src``), so a parent commit unpacked beside this one can be timed in
@@ -98,6 +117,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -120,8 +140,14 @@ HEXT_WORKLOADS = ("sha", "crc32", "basicmath", "stringsearch", "fft")
 HEXT_FIELDS = ("done", "exit_code", "instret", "instret_virt", "ticks",
                "exc_by_level", "int_by_level", "pagefaults", "walks",
                "timer_irqs", "ctx_switches", "ok")
-HEXT_MAX_TICKS = 4096
-HEXT_CHUNK = 32
+HEXT_COMPARE_TICKS = 512           # (a) graph vs eager
+HEXT_RATE_TICKS = 2048             # (a) each graph's rate
+HEXT_IPS = (1, 8, 32)              # graph ticks per replay, each measured
+HEXT_SNAPSHOT_AT = 12288           # (b) mid-run snapshot of the matrix
+HEXT_MAX_TICKS = 30000             # susan guest needs 25,363
+HEXT_PREEMPT_MAX_TICKS = 4096      # (c) the short column needs <= 3,069
+HEXT_CHUNK = 1024                  # one all(done) read per 1024 ticks
+HEXT_PROFILE_TICKS = 64
 
 # vmem: one attention layer of Qwen3-30B-A3B
 # (src/repro/configs/qwen3_moe_30b_a3b.py) over a decode batch of 8 tenants
@@ -506,41 +532,199 @@ def pagewalk_phase(torch, np, dev) -> dict:
             "library_ms": None}
 
 
-def hext_phase(torch, dev) -> None:
-    from repro_torch.core.hext import programs
-    from repro_torch.core.hext.sim import Fleet
-    from repro_torch.kernels.pagewalk import kernel as K
+def hext_golden() -> dict:
+    return json.loads((ROOT / "benchmarks/results/hext_runs.json")
+                      .read_text())
 
-    golden = json.loads((ROOT / "benchmarks/results/hext_runs.json")
-                        .read_text())["workloads"]
-    by_name = {w.name: w for w in programs.WORKLOADS}
-    wls = [by_name[n] for n in HEXT_WORKLOADS]
-    fleet = Fleet.boot(wls * 2, guest=[False] * len(wls) + [True] * len(wls),
-                       device=dev)
-    torch.cuda.synchronize()
-    # no kernel of the port lies on this path; the counts are read around
-    # it all the same
-    K.two_stage_translate_kernel.launches = 0
-    t0 = time.perf_counter()
-    fleet.run(HEXT_MAX_TICKS, chunk=HEXT_CHUNK)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    phase("hext", path_kernel_launches=K.two_stage_translate_kernel.launches)
-    report = fleet.report()
+
+def hext_check(report: dict, golden: dict) -> None:
+    """Every ``HEXT_FIELDS`` field of every hart equals ``hext_runs.json``
+    (a label ``w+w/Nguest-preempt`` reads workload w's column)."""
     for label, entry in report.items():
-        name, mode = label.split("/")
-        want = golden[name][mode]
+        name, column = label.split("/")
+        want = golden["workloads"][name.split("+")[0]][column]
         bad = {f: (entry[f], want[f]) for f in HEXT_FIELDS
                if entry[f] != want[f]}
         if bad:
             raise RuntimeError(f"hext {label}: counters differ from "
                                f"hext_runs.json (got, want): {bad}")
+
+
+def hext_rates(report: dict, wall: float) -> dict:
     lockstep = max(e["ticks"] for e in report.values())
     hart_ticks = sum(e["ticks"] for e in report.values())
-    phase("hext", harts=len(report), all_counters_match=True,
-          wall_s=f"{wall:.3f}", lockstep_ticks=lockstep,
-          lockstep_ticks_per_s=f"{lockstep / wall:.1f}",
-          hart_ticks_per_s=f"{hart_ticks / wall:.1f}")
+    return {"harts": len(report), "wall_s": f"{wall:.3f}",
+            "lockstep_ticks": lockstep,
+            "lockstep_ticks_per_s": f"{lockstep / wall:.1f}",
+            "hart_ticks_per_s": f"{hart_ticks / wall:.1f}"}
+
+
+def hext_state_diff(a, b) -> dict:
+    """{hart: diff} of two batched states, every hart, memory included."""
+    from repro_torch.core.hext.engine import diff_arrays
+    na, nb = a.to_numpy(), b.to_numpy()
+    diffs = {i: diff_arrays(na, i, nb, i) for i in range(a.batch)}
+    return {i: d for i, d in diffs.items() if d}
+
+
+def hext_run(torch, fleet, ticks: int, chunk: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet.run(ticks, chunk=chunk)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def hext_profiled(torch, fleet, ticks: int) -> dict:
+    """Kernels a tick and the device's idle share over one chunk of
+    ``ticks`` under ``torch.profiler``: 1 - the union of the kernels'
+    intervals over the span from the first kernel's start to the last
+    one's end.  The tracer widens the gaps between a graph's kernels, so
+    the idle share is also given against the wall of the same chunk run
+    unprofiled just before (``idle_vs_unprofiled_wall``), after a first
+    chunk that captures the fleet's graph."""
+    hext_run(torch, fleet, ticks, ticks)
+    wall = hext_run(torch, fleet, ticks, ticks)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        hext_run(torch, fleet, ticks, ticks)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"profiled_ticks": ticks,
+           "unprofiled_ms_per_tick": f"{wall * 1e3 / ticks:.3f}"}
+    if not kernels:
+        return {**out, "device_idle_share": "not measured"}
+    span = (max(k.time_range.end for k in kernels) -
+            min(k.time_range.start for k in kernels))
+    busy = busy_us(kernels)
+    return {**out, "kernels_per_tick": f"{len(kernels) / ticks:.1f}",
+            "device_busy_ms_per_tick": f"{busy / ticks / 1e3:.3f}",
+            "device_idle_share_profiled": f"{1 - busy / span:.4f}",
+            "idle_vs_unprofiled_wall": f"{1 - busy / 1e6 / wall:.4f}"}
+
+
+def hext_phase(torch, dev) -> None:
+    """(a) graph vs eager, (b) the 9 x {native, guest} matrix through a
+    snapshot and restore, (c) the five short 1guest-preempt runs."""
+    from repro_torch.core.hext import engine, programs
+    from repro_torch.core.hext.sim import Fleet
+    from repro_torch.kernels.pagewalk import kernel as K
+
+    golden = hext_golden()
+    by_name = {w.name: w for w in programs.WORKLOADS}
+    short = [by_name[n] for n in HEXT_WORKLOADS]
+
+    # (a) the eager engine (host gates) and the graph engine (device
+    # gates, one CUDA graph) from one boot, whole state compared
+    def boot_short(eng):
+        return Fleet.boot(short * 2, guest=[False] * 5 + [True] * 5,
+                          device=dev, engine=eng)
+
+    eager = boot_short("eager")
+    eager_s = hext_run(torch, eager, HEXT_COMPARE_TICKS, HEXT_COMPARE_TICKS)
+    eager_rate = HEXT_COMPARE_TICKS / eager_s
+    for ips in HEXT_IPS:
+        eng = engine.GraphEngine(instrs_per_step=ips)
+        graph = boot_short(eng)
+        first_s = hext_run(torch, graph, HEXT_COMPARE_TICKS,
+                           HEXT_COMPARE_TICKS)
+        bad = hext_state_diff(graph.harts, eager.harts)
+        if bad:
+            raise RuntimeError(f"hext: graph (ips {ips}) and eager engines "
+                               f"differ after {HEXT_COMPARE_TICKS} ticks: "
+                               f"{bad}")
+        # the rate, on the captured graph, over a longer window
+        rate_s = hext_run(torch, boot_short(eng), HEXT_RATE_TICKS,
+                          HEXT_RATE_TICKS)
+        phase("hext", check=f"graph ips {ips} vs eager, "
+              f"{HEXT_COMPARE_TICKS} ticks, 10 harts", equal=True,
+              capture_s=f"{eng.last_capture_s:.3f}",
+              first_run_s=f"{first_s:.3f}",
+              graph_ticks_per_s=f"{HEXT_RATE_TICKS / rate_s:.1f}",
+              eager_ticks_per_s=f"{eager_rate:.1f}")
+
+    # (b) the paper's matrix on the default engine, snapshot mid-run
+    wls = programs.WORKLOADS
+    n = len(wls)
+
+    def boot_matrix():
+        return Fleet.boot(wls * 2, guest=[False] * n + [True] * n,
+                          device=dev)
+
+    fleet = boot_matrix()
+    if fleet.engine.name != "graph":
+        raise RuntimeError(f"hext: a CUDA fleet's default engine is "
+                           f"{fleet.engine.name!r}, not 'graph'")
+    # no kernel of the port lies on this path; the count is read around
+    # it all the same
+    K.two_stage_translate_kernel.launches = 0
+    run1_s = hext_run(torch, fleet, HEXT_SNAPSHOT_AT, HEXT_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = fleet.snapshot(Path(tmp) / "matrix.npz")
+        restored = Fleet.restore(path, device=dev)
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+        profiled = Fleet.restore(path, device=dev)
+    bad = hext_state_diff(restored.harts, fleet.harts)
+    if bad or restored.engine.name != "graph" or \
+            restored.harts.device != dev:
+        raise RuntimeError(f"hext: the restored matrix differs from the "
+                           f"saved one: {bad} (engine "
+                           f"{restored.engine.name})")
+    phase("hext", snapshot_at=HEXT_SNAPSHOT_AT, harts=len(restored),
+          restored_equal=True, engine=restored.engine.name,
+          snapshot_and_restore_s=f"{ckpt_s:.3f}")
+    del fleet
+    run2_s = hext_run(torch, restored, HEXT_MAX_TICKS, HEXT_CHUNK)
+    phase("hext", path_kernel_launches=K.two_stage_translate_kernel.launches)
+    report = restored.report()
+    hext_check(report, golden)
+    phase("hext", matrix="9 x {native, guest}", all_counters_match=True,
+          engine=restored.engine.name,
+          capture_s=f"{restored.engine.last_capture_s:.3f}",
+          run_before_snapshot_s=f"{run1_s:.3f}",
+          run_after_restore_s=f"{run2_s:.3f}",
+          **hext_rates(report, run1_s + run2_s))
+    phase("hext", matrix="profiled chunk after the restore",
+          **hext_profiled(torch, profiled, HEXT_PROFILE_TICKS))
+    del restored, profiled
+
+    # (c) the five short workloads' 1guest-preempt column
+    pre = Fleet.boot(short, guests_per_hart=1,
+                     timeslice=golden["timeslice"], device=dev)
+    wall = hext_run(torch, pre, HEXT_PREEMPT_MAX_TICKS, HEXT_CHUNK)
+    report = pre.report()
+    hext_check(report, golden)
+    phase("hext", column="1guest-preempt", workloads="+".join(HEXT_WORKLOADS),
+          all_counters_match=True, engine=pre.engine.name,
+          **hext_rates(report, wall))
+
+
+def hext_matrix(torch, dev) -> None:
+    """``--hext-matrix``: the columns the default run leaves out — the
+    long four's 1guest-preempt column and the 2guest-preempt and
+    4guest-preempt columns of all nine — each held to ``hext_runs.json``
+    with its wall."""
+    from repro_torch.core.hext import programs
+    from repro_torch.core.hext.sim import Fleet
+
+    golden = hext_golden()
+    long4 = [w for w in programs.WORKLOADS if w.name not in HEXT_WORKLOADS]
+    for n, wls in ((1, long4), (2, programs.WORKLOADS),
+                   (4, programs.WORKLOADS)):
+        fleet = Fleet.boot(wls, guests_per_hart=n,
+                           timeslice=golden["timeslice"], device=dev)
+        want = max(golden["workloads"][w.name][f"{n}guest-preempt"]["ticks"]
+                   for w in wls)
+        wall = hext_run(torch, fleet, want, HEXT_CHUNK)
+        report = fleet.report()
+        hext_check(report, golden)
+        phase("hext-matrix", column=f"{n}guest-preempt",
+              workloads="+".join(w.name for w in wls),
+              all_counters_match=True, engine=fleet.engine.name,
+              **hext_rates(report, wall))
 
 
 def close(got, want, tol, what) -> float:
@@ -1551,6 +1735,11 @@ def main(argv=None) -> int:
     ap.add_argument("--walk-times", action="store_true",
                     help="only the pagewalk timings (no checks of the "
                     "other phases, no result line)")
+    ap.add_argument("--hext-matrix", action="store_true",
+                    help="only the hext columns the default run leaves "
+                    "out (the long four's 1guest-preempt, all nine's "
+                    "2guest- and 4guest-preempt), each held to the goldens "
+                    "(no other phase, no result line)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is run (so "
                     "two checkouts can be timed in turns in one call)")
@@ -1571,6 +1760,13 @@ def main(argv=None) -> int:
               torch=torch.__version__)
         print(smi, flush=True)
         return walk_times(torch, np, dev, smi)
+    if args.hext_matrix:
+        phase("hext-matrix", torch=torch.__version__)
+        print(smi, flush=True)
+        hext_matrix(torch, dev)
+        print(smi, flush=True)
+        return 0
+    t_start = time.perf_counter()
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0])
     print(smi, flush=True)
@@ -1587,7 +1783,6 @@ def main(argv=None) -> int:
     phase("build", wall_s=f"{time.perf_counter() - t0:.2f}")
 
     walk = pagewalk_phase(torch, np, dev)
-    hext_phase(torch, dev)
     walk_launches, path_times, attention = vmem_phase(torch, np, dev)
     # pagewalk's path is its consumer's, the vmem decode path: its launches
     # there, and its times at the path's call (translate_block's walk)
@@ -1596,6 +1791,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash = model_phase(torch, np, dev)
     kernels = [walk, attention, flash]
+    torch.cuda.empty_cache()
+    # last: after CUDA graphs were captured and traced in a process, a
+    # later trace of the pagewalk calls there held no spin kernels
+    # (PERF.md §7)
+    hext_phase(torch, dev)
+    phase("smoke", wall_s=f"{time.perf_counter() - t_start:.1f}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,23 @@
-"""Run loop of the port — counterpart of ``repro.core.hext.engine``.
+"""Run loops of the port — counterpart of ``repro.core.hext.engine``.
 
-:class:`TorchEngine` advances a batched ``HartState`` by up to
-``max_ticks`` ticks: a Python loop over chunks of ``machine.step_batched``
-with a per-chunk early exit once every hart reports ``done`` (one host
-sync per chunk), the reference's ``JitEngine`` semantics — the budget
-rounds up to whole chunks, and a chunk that starts with a live hart runs
-all of its ticks (done harts are frozen, so extra ticks change nothing).
+An :class:`Engine` advances a batched ``HartState`` by up to ``max_ticks``
+ticks and returns the final state.  Engines are resolved by name through
+the registry (:func:`resolve`); any object with a ``run(state, max_ticks,
+chunk=...)`` method is taken as an engine.  Two backends are registered:
+
+* ``"eager"`` — :class:`TorchEngine`, a Python loop of
+  ``machine.step_batched`` with the four batch-level gates read on the
+  host (four syncs a tick).  It runs on any device and is the CPU's
+  engine and the card's eager reference.
+* ``"graph"`` — :class:`GraphEngine`, the counterpart of the reference's
+  ``JitEngine``: ``instrs_per_step`` ticks of ``step_batched(...,
+  gates="device")`` captured once as a CUDA graph and replayed, with one
+  ``all(done)`` host read a chunk.  It runs only on a CUDA state.
+
+Both keep the reference's semantics: the budget rounds up to whole
+chunks, the run stops before a chunk once every hart is done, and done
+harts are frozen, so any extra ticks change nothing.  Neither writes into
+the caller's tensors.
 
 :func:`diff_states` is the field-by-field architectural differential
 compare of the reference (``DIFF_SCALARS``/``DIFF_COUNTERS``, every
@@ -13,14 +25,19 @@ register, CSR and memory word).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import time
+from typing import Any, Callable, Dict, List, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import machine as _machine
 
-__all__ = ["TorchEngine", "diff_states", "diff_arrays", "DIFF_SCALARS",
+__all__ = ["Engine", "TorchEngine", "GraphEngine", "ENGINES",
+           "register_engine", "resolve",
+           "CapturedTicks",
+           "diff_states", "diff_arrays", "state_arrays", "DIFF_SCALARS",
            "DIFF_COUNTERS"]
 
 DIFF_SCALARS = ("pc", "priv", "virt", "halted", "done", "exit_code",
@@ -28,26 +45,214 @@ DIFF_SCALARS = ("pc", "priv", "virt", "halted", "done", "exit_code",
 DIFF_COUNTERS = ("instret", "instret_virt", "pagefaults", "walks",
                  "ticks", "timer_irqs", "ctx_switches")
 
+# the eager loop reads ``done`` every this many ticks (done harts are
+# frozen, so stopping between polls changes no state)
+EAGER_POLL = 256
+# ticks a graph replay advances: 1, 8 and 32 run at one rate on the
+# H100 and capture time grows with it (PERF.md §6)
+GRAPH_IPS = 1
+
 
 def _n_chunks(max_ticks: int, chunk: int) -> int:
     """Tick budgets round UP to whole chunks (the reference's semantics)."""
     return -(-int(max_ticks) // int(chunk))
 
 
-class TorchEngine:
-    """Eager PyTorch backend: chunks of ``step_batched`` on the state's
-    device, one ``all(done)`` host sync per chunk."""
+def _check_ips(chunk: int, ips: int) -> int:
+    ips = int(ips)
+    if ips < 1 or int(chunk) % ips != 0:
+        raise ValueError(
+            f"instrs_per_step must divide chunk: chunk={chunk} ips={ips}")
+    return ips
 
-    def run(self, state, max_ticks: int, chunk: int = 256):
-        if int(chunk) < 1:
-            raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+# ---------------------------------------------------------------------------
+# Engine protocol + registry
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class Engine(Protocol):
+    """An execution backend: advance ``state`` by up to ``max_ticks``
+    ticks and return the new state (the input is left as it was)."""
+
+    name: str
+
+    def run(self, state, max_ticks: int, chunk: int = 4096):
+        ...
+
+
+ENGINES: Dict[str, Callable[[], "Engine"]] = {}
+
+
+def register_engine(name: str, factory: Callable[[], "Engine"]) -> None:
+    """Register a backend under ``name`` (``Fleet.boot(..., engine=name)``)."""
+    ENGINES[name] = factory
+
+
+def resolve(engine: Any = None, device=None) -> "Engine":
+    """None → the default engine for ``device``: ``"graph"`` on CUDA (and
+    for ``None``, the port's default device), ``"eager"`` elsewhere;
+    str → registry lookup; any object with a ``run`` method is taken as
+    an engine instance."""
+    if engine is None:
+        dev = torch.device("cuda" if device is None else device)
+        engine = "graph" if dev.type == "cuda" else "eager"
+    if isinstance(engine, str):
+        if engine not in ENGINES:
+            raise ValueError(
+                f"unknown engine {engine!r}; registered: "
+                f"{sorted(ENGINES)}")
+        return ENGINES[engine]()
+    if callable(getattr(engine, "run", None)):
+        return engine
+    raise TypeError(f"engine must be None, a registered name, or an "
+                    f"object with .run(state, max_ticks); got {engine!r}")
+
+
+# ---------------------------------------------------------------------------
+# TorchEngine — the eager loop, host gates
+# ---------------------------------------------------------------------------
+
+class TorchEngine:
+    """Eager backend: ``step_batched`` with host gates on the state's
+    device, ``all(done)`` read every :data:`EAGER_POLL` ticks.
+    ``instrs_per_step`` is the reference's knob; here it only has to
+    divide ``chunk``."""
+
+    name = "eager"
+
+    def __init__(self, instrs_per_step: int = 1):
+        self._ips = int(instrs_per_step)
+
+    def run(self, state, max_ticks: int, chunk: int = 4096):
+        _check_ips(chunk, self._ips)
         raw = state.to_raw()
-        for _ in range(_n_chunks(max_ticks, chunk)):
-            if bool(raw["done"].all()):
-                break
-            for _ in range(int(chunk)):
+        total = _n_chunks(max_ticks, chunk) * int(chunk)
+        with torch.no_grad():
+            for t in range(total):
+                if t % EAGER_POLL == 0 and bool(raw["done"].all()):
+                    break
                 raw = _machine.step_batched(raw)
         return type(state).from_raw(raw)
+
+
+# ---------------------------------------------------------------------------
+# GraphEngine — a chunk of ticks as replays of one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+def _clone(raw: Dict) -> Dict:
+    return {k: ({j: u.clone() for j, u in v.items()}
+                if isinstance(v, dict) else v.clone())
+            for k, v in raw.items()}
+
+
+def _copy_into(dst: Dict, src: Dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _ticks(raw: Dict, n: int) -> Dict:
+    for _ in range(n):
+        raw = _machine.step_batched(raw, gates="device")
+    return raw
+
+
+class CapturedTicks:
+    """``ips`` device-gated ticks captured as one CUDA graph over the
+    static state buffers ``static``; the captured ticks end by copying the
+    new state into those buffers, so each :meth:`replay` advances them by
+    ``ips`` ticks.  ``capture_s`` is the wall time of warm-up + capture."""
+
+    def __init__(self, raw: Dict, ips: int):
+        t0 = time.perf_counter()
+        dev = raw["pc"].device
+        with torch.no_grad():
+            self.static = _clone(raw)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # warm-up: builds the lazily cached device constants
+                # (bits.device_const, csr/decode tables, trap priorities)
+                # off the capture, where a host→device copy is not allowed
+                _ticks(self.static, 1)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _copy_into(self.static, _ticks(self.static, ips))
+        torch.cuda.synchronize(dev)
+        self.ips = ips
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, raw: Dict) -> None:
+        """Copy a state into the static buffers."""
+        _copy_into(self.static, raw)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def state(self) -> Dict:
+        """A copy of the static buffers (aliases nothing of the cache)."""
+        return _clone(self.static)
+
+
+class GraphEngine:
+    """CUDA-graph backend, the counterpart of the reference's ``JitEngine``.
+
+    ``instrs_per_step`` ticks of ``step_batched(..., gates="device")`` are
+    captured once per (device, batch, mem_words, ips) and kept by the
+    engine (a fleet's engine, or one shared by fleets of one shape), then
+    replayed ``chunk // ips`` times a chunk;
+    ``all(done)`` is read on the host once a chunk, the run's only sync.
+    The state is copied into the static buffers at the start of a run and
+    out at its end, so what ``run`` returns aliases nothing of the cache
+    and nothing the caller holds changes.  A capture or launch failure
+    raises; there is no fallback to the eager engine."""
+
+    name = "graph"
+
+    def __init__(self, instrs_per_step: int = GRAPH_IPS):
+        self._ips = int(instrs_per_step)
+        self._graphs: Dict[tuple, CapturedTicks] = {}
+        self.last_capture_s = 0.0
+
+    def run(self, state, max_ticks: int, chunk: int = 4096):
+        ips = _check_ips(chunk, self._ips)
+        if state.device.type != "cuda":
+            raise ValueError(
+                f"GraphEngine runs only on a CUDA state, got one on "
+                f"{state.device}; use engine='eager' on the CPU")
+        raw = state.to_raw()
+        mem = raw["mem"]
+        key = (mem.device, int(mem.shape[0]), int(mem.shape[1]), ips)
+        if key not in self._graphs:
+            self._graphs[key] = CapturedTicks(raw, ips)
+        g = self._graphs[key]
+        self.last_capture_s = g.capture_s
+        g.load(raw)
+        done = g.static["done"]
+        for _ in range(_n_chunks(max_ticks, chunk)):
+            if bool(done.all()):
+                break
+            for _ in range(int(chunk) // ips):
+                g.replay()
+        return type(state).from_raw(g.state())
+
+
+register_engine("eager", TorchEngine)
+register_engine("graph", GraphEngine)
+
+
+# ---------------------------------------------------------------------------
+# differential compare
+# ---------------------------------------------------------------------------
+
+def state_arrays(state) -> Dict[str, np.ndarray]:
+    """Host arrays of a batched ``HartState`` shaped for :func:`diff_arrays`
+    (the reference's names and dtypes, leading hart dimension)."""
+    return state.to_numpy()
 
 
 def diff_arrays(a: Dict[str, np.ndarray], i: int,
@@ -88,5 +293,5 @@ def diff_states(a, b, i: int = 0, j: int = 0,
     """Diff hart ``i`` of ``HartState`` ``a`` against hart ``j`` of ``b``:
     pc / x1..x31 / the full CSR file / priv / virt / halted / done /
     exit_code / console / memory / every counter."""
-    return diff_arrays(a.to_numpy(), i, b.to_numpy(), j,
+    return diff_arrays(state_arrays(a), i, state_arrays(b), j,
                        compare_mem=compare_mem)

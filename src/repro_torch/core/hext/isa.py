@@ -513,14 +513,16 @@ def _alu_result(uop: D.MicroOp, rv1, rv2):
 
 def execute_uop(state, uop: D.MicroOp, rv1, rv2, q: MemQuery,
                 xr: X.XResult, walked, sys: SysOut,
-                data_fill: bool = True) -> ExecOut:
+                data_fill=True) -> ExecOut:
     """Merge all opclass contributors for a decoded micro-op batch.
 
     ``xr``/``walked`` is the (possibly TLB-short-circuited) data
     translation for ``q.addr``; ``sys`` the (possibly batch-gated) SYSTEM
-    contribution.  ``data_fill=False`` says the data walk did not run for
-    any hart in the batch: no hart that commits can then fill the TLB, so
-    the fill is skipped (``machine.execute`` passes it)."""
+    contribution.  ``data_fill`` says whether the data walk ran for any
+    hart in the batch (``machine.execute`` passes its gate): a Python bool
+    (``False``: no hart that commits can fill the TLB, so the fill is
+    skipped) or a 0-d device bool that masks the fill, so no host read is
+    needed."""
     s = state
     csrs = s["csrs"]
     pc = s["pc"]
@@ -619,10 +621,14 @@ def execute_uop(state, uop: D.MicroOp, rv1, rv2, q: MemQuery,
                     word_deposit(csrs[:, C.R_MTIME], xr.pa, rv2, size),
                     csrs[:, C.R_MTIME])])
     new_tlb = s["tlb"]
-    if data_fill:
-        new_tlb = TLB.select(mem_ok & walked,
-                             tlb_fill(s, addr, xr, force_virt=q.force_virt),
-                             new_tlb)
+    if data_fill is not False:
+        with torch.profiler.record_function("hext.data_walk"):
+            fill = mem_ok & walked
+            if isinstance(data_fill, torch.Tensor):
+                fill = fill & data_fill
+            new_tlb = TLB.select(
+                fill, tlb_fill(s, addr, xr, force_virt=q.force_virt),
+                new_tlb)
     fault = merge_fault(fault, mk_fault(q.hx_vinst,
                                         C.EXC_VIRTUAL_INSTRUCTION, instr))
     fault = merge_fault(fault, mk_fault(q.hx_illegal, C.EXC_ILLEGAL, instr))

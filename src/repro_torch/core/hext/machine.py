@@ -13,10 +13,18 @@ The per-tick pipeline is the reference's, staged the same way:
                store are single conditional scatters.
 
 The reference's four batch-level ``lax.cond`` gates (fetch walk, data
-walk, SYSTEM, trap) become ``if mask.any():`` — one host sync each — and
-their skipped branch returns the same neutral record (:func:`zero_xr`,
-``isa.neutral_sys``, the untouched CSR bank), so results are
-bit-identical whether or not a gate opens.
+walk, SYSTEM, trap) come in two forms, chosen by ``step_batched(gates=)``:
+
+* ``"host"`` — ``if mask.any():``, one host sync each; the branch that is
+  not taken is not run (the eager engine's tick);
+* ``"device"`` — every branch runs on every tick and a device-side
+  ``mask.any()`` selects, leaf by leaf, between its result and the neutral
+  record; no host sync, so a chunk of ticks can be captured as one CUDA
+  graph (``engine.GraphEngine``).
+
+Either way a gate that stays shut yields the same neutral record
+(:func:`zero_xr`, ``isa.neutral_sys``, the untouched CSR bank), so the two
+forms are bit-identical by construction.
 
 State is a raw dict of tensors with a leading hart dimension B (the
 reference's ``_make_state`` keys); ``sim.HartState`` wraps it.
@@ -38,6 +46,8 @@ from repro_torch.core.hext.bits import (device_const, lsr, s64, uge,
                                         word_index)
 
 DEFAULT_MEM_WORDS = 1 << 15          # 256 KiB per hart
+
+GATES = ("host", "device")
 
 COUNTER_KEYS = ("instret", "instret_virt", "pagefaults", "walks", "ticks",
                 "timer_irqs", "ctx_switches")
@@ -122,7 +132,34 @@ def _gather(arr2d, idx):
     return arr2d.gather(1, idx[:, None])[:, 0]
 
 
-def fetch(state: Dict, csrs1, m_run):
+def _where_tree(cond, a, b):
+    """``torch.where(cond, a, b)`` leaf by leaf over matching (named)
+    tuples of tensors; ``cond`` is a 0-d bool tensor."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    leaves = [_where_tree(cond, x, y) for x, y in zip(a, b)]
+    return type(a)(*leaves) if hasattr(a, "_fields") else tuple(leaves)
+
+
+def _gated(need, gates: str, span: str, branch, neutral):
+    """The reference's batch-level ``lax.cond(need.any(), branch,
+    neutral)`` → ``(open, result)``.  ``"host"``: ``open`` is a Python bool
+    read from the card and only the chosen side runs; ``"device"``: both
+    sides run and ``open`` is a 0-d device bool that selects between them.
+    The branch runs under the profiler span ``span``
+    (``tools/profile_hext`` reads its kernels)."""
+    def run_branch():
+        with torch.profiler.record_function(span):
+            return branch()
+
+    if gates == "host":
+        open_ = bool(need.any())
+        return open_, (run_branch() if open_ else neutral())
+    open_ = need.any()
+    return open_, _where_tree(open_, run_branch(), neutral())
+
+
+def fetch(state: Dict, csrs1, m_run, gates: str = "host"):
     """Stage 1: translate PC (TLB fast path, gated walk) and gather the
     instruction word.  Returns (instr, fetch_fault, f_fetch, tlb1, walked)
     where tlb1 carries the fetch-side TLB fill."""
@@ -133,12 +170,10 @@ def fetch(state: Dict, csrs1, m_run):
     use_f = tv.use
     walked = ~use_f
     need = m_run & walked
-    walk_f = bool(need.any())
-    tlb1 = state["tlb"]
-    if walk_f:
-        xrw = X.translate(mem, csrs1, priv0, virt0, pc0, X.ACC_X)
-    else:
-        xrw = zero_xr(pc0)
+    walk_f, xrw = _gated(
+        need, gates, "hext.fetch_walk",
+        lambda: X.translate(mem, csrs1, priv0, virt0, pc0, X.ACC_X),
+        lambda: zero_xr(pc0))
     pa = torch.where(use_f, tv.pa, xrw.pa)
     xr = xrw._replace(pa=pa, fault=walked & xrw.fault)
     # fetching from a PA beyond memory (MMIO included — nothing up there is
@@ -155,16 +190,20 @@ def fetch(state: Dict, csrs1, m_run):
         torch.zeros_like(pc0))
     word = _gather(mem, word_index(pa, mem.shape[1]))
     instr = torch.where((pa & 4) != 0, lsr(word, 32), word & 0xFFFFFFFF)
-    if walk_f:
-        # a fill needs a walk, so a batch with no walk has nothing to fill
-        fill = m_run & ~fetch_fault & walked
-        tlb1 = TLB.select(fill, isa.tlb_fill(
-            {"tlb": state["tlb"], "csrs": csrs1, "priv": priv0,
-             "virt": virt0}, pc0, xr), state["tlb"])
+    tlb1 = state["tlb"]
+    # a fill needs a walk (``fill`` lies inside ``need``), so a batch with
+    # no walk has nothing to fill: the host gate skips it, and under the
+    # device gate the all-false mask keeps the old TLB
+    if walk_f is not False:
+        with torch.profiler.record_function("hext.fetch_walk"):
+            fill = m_run & ~fetch_fault & walked
+            tlb1 = TLB.select(fill, isa.tlb_fill(
+                {"tlb": state["tlb"], "csrs": csrs1, "priv": priv0,
+                 "virt": virt0}, pc0, xr), state["tlb"])
     return instr, fetch_fault, f_fetch, tlb1, walked
 
 
-def execute(state: Dict, csrs1, tlb1, instr, m_exec):
+def execute(state: Dict, csrs1, tlb1, instr, m_exec, gates: str = "host"):
     """Stages 2+3: decode to micro-ops, translate the data access (TLB
     fast path, gated walk), run the gated SYSTEM contributor, and merge
     everything through ``isa.execute_uop``.  ``m_exec`` masks the harts
@@ -186,21 +225,20 @@ def execute(state: Dict, csrs1, tlb1, instr, m_exec):
     use_d = tv.use & ~q.hlvx
     walked_d = ~use_d
     need_d = m_exec & q.mem_op & ~q.misaligned & walked_d
-    walk_d = bool(need_d.any())
-    if walk_d:
-        xrw = X.translate(state["mem"], csrs1, priv0, virt0, q.addr, q.macc,
-                          force_virt=q.force_virt, hlvx=q.hlvx)
-    else:
-        xrw = zero_xr(pc0)
+    walk_d, xrw = _gated(
+        need_d, gates, "hext.data_walk",
+        lambda: X.translate(state["mem"], csrs1, priv0, virt0, q.addr,
+                            q.macc, force_virt=q.force_virt, hlvx=q.hlvx),
+        lambda: zero_xr(pc0))
     xr = xrw._replace(pa=torch.where(use_d, tv.pa, xrw.pa),
                       fault=walked_d & xrw.fault)
 
     # ---- SYSTEM contributor (gated: the CSR file ops are heavy) -----------
     sys_need = m_exec & (uop.cls == D.CLS_SYSTEM) & (uop.f3 != 4)
-    if bool(sys_need.any()):
-        sys = isa.exec_sys(csrs1, priv0, virt0, pc0, rv1, uop)
-    else:
-        sys = isa.neutral_sys(csrs1)
+    _, sys = _gated(
+        sys_need, gates, "hext.system",
+        lambda: isa.exec_sys(csrs1, priv0, virt0, pc0, rv1, uop),
+        lambda: isa.neutral_sys(csrs1))
 
     # ---- merge contributors -----------------------------------------------
     st = dict(state)
@@ -216,7 +254,7 @@ _PF_CAUSES = (C.EXC_IPAGE_FAULT, C.EXC_LPAGE_FAULT, C.EXC_SPAGE_FAULT,
 
 
 def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
-           masks):
+           masks, gates: str = "host"):
     """Stage 4: apply outcome-class commit masks per field.  Register
     writeback and the store are single conditional scatters."""
     frozen, take, icause, m_run, m_int = masks
@@ -228,19 +266,19 @@ def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
     m_trap = m_int | m_fault
 
     # ---- trap invoke (one gated take_trap for interrupts + faults) -------
-    if bool(m_trap.any()):
-        t_cause = torch.where(take, icause, fault.cause)
-        t_tval = torch.where(take, 0, fault.tval)
-        t_tval2 = torch.where(take, 0, fault.tval2)
-        t_gva = ~take & fault.gva
-        t_tinst = torch.where(take, 0, fault.tinst)
-        trap_csrs, trap_pc, trap_priv, trap_virt, handled = TR.take_trap(
-            csrs1, priv0, virt0, pc0, t_cause, take, t_tval, t_tval2, t_gva,
-            t_tinst)
-    else:
+    def trap():
+        return TR.take_trap(
+            csrs1, priv0, virt0, pc0, torch.where(take, icause, fault.cause),
+            take, torch.where(take, 0, fault.tval),
+            torch.where(take, 0, fault.tval2), ~take & fault.gva,
+            torch.where(take, 0, fault.tinst))
+
+    def no_trap():
         z = torch.zeros_like(pc0)
-        trap_csrs, trap_pc, trap_priv, handled = csrs1, z, z, z
-        trap_virt = torch.zeros_like(virt0)
+        return csrs1, z, z, torch.zeros_like(virt0), z
+
+    _, (trap_csrs, trap_pc, trap_priv, trap_virt, handled) = _gated(
+        m_trap, gates, "hext.trap", trap, no_trap)
 
     out = dict(state)
     out["pc"] = torch.where(m_trap, trap_pc,
@@ -289,9 +327,13 @@ def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
     return out
 
 
-def step_batched(state: Dict) -> Dict:
+def step_batched(state: Dict, gates: str = "host") -> Dict:
     """One architectural tick for a (B, ...) hart batch — the fused
-    fetch → decode → execute → retire pipeline."""
+    fetch → decode → execute → retire pipeline.  ``gates`` picks the form
+    of the four batch-level gates (module docstring); the result is the
+    same bit for bit."""
+    if gates not in GATES:
+        raise ValueError(f"gates must be one of {GATES}, got {gates!r}")
     frozen = state["done"]
 
     # ---- 0. virtual CLINT tick (frozen harts keep their old csrs) --------
@@ -307,7 +349,8 @@ def step_batched(state: Dict) -> Dict:
     m_int = ~frozen & take
 
     # ---- 2..4. fetch → decode+execute → retire ----------------------------
-    instr, fetch_fault, f_fetch, tlb1, walked_f = fetch(state, csrs1, m_run)
-    eo = execute(state, csrs1, tlb1, instr, m_run & ~fetch_fault)
+    instr, fetch_fault, f_fetch, tlb1, walked_f = fetch(state, csrs1, m_run,
+                                                        gates)
+    eo = execute(state, csrs1, tlb1, instr, m_run & ~fetch_fault, gates)
     return retire(state, csrs1, tlb1, eo, f_fetch, walked_f,
-                  (frozen, take, icause, m_run, m_int))
+                  (frozen, take, icause, m_run, m_int), gates)

@@ -9,8 +9,11 @@ counterpart of ``repro.core.hext.sim``.
   one state is put through both packages.
 * ``Fleet`` — ``Fleet.boot(workloads, guest=...)`` assembles system
   images and batches them, ``fleet.run(max_ticks)`` advances every
-  machine in lockstep, ``fleet.counters()`` / ``fleet.report()`` read the
-  paper's counters back out.
+  machine in lockstep through its engine (``engine.resolve``: ``"graph"``
+  on a CUDA fleet, ``"eager"`` on a CPU fleet, unless the caller names
+  one), ``fleet.counters()`` / ``fleet.report()`` read the paper's
+  counters back out, and ``fleet.snapshot`` / ``Fleet.restore`` write and
+  read the reference's checkpoint format (:mod:`.checkpoint`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`repro_torch.device.resolve`).
@@ -23,14 +26,15 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.hext import engine as _engine
 from repro_torch.core.hext import machine as _machine
 from repro_torch.core.hext import programs
-from repro_torch.core.hext.engine import TorchEngine
 from repro_torch.device import resolve
 
 MASK64 = (1 << 64) - 1
 
-__all__ = ["Counters", "HartState", "Fleet", "HartSpec", "checksum_ok"]
+__all__ = ["Counters", "HartState", "Fleet", "HartSpec", "checksum_ok",
+           "run_on_device", "StaleHartsError"]
 
 
 def checksum_ok(exit_code, golden: int) -> bool:
@@ -236,6 +240,22 @@ class HartState:
 
 
 # ---------------------------------------------------------------------------
+# run_on_device — the default engine of the state's device
+# ---------------------------------------------------------------------------
+
+def run_on_device(state: HartState, max_ticks: int, chunk: int = 4096,
+                  donate: bool = True) -> HartState:
+    """Run until every hart is done or ``max_ticks`` elapse (rounded up to
+    whole chunks) on the default engine of the state's device.
+
+    ``donate`` is the reference's signature and changes nothing here: the
+    port never writes into the caller's tensors, so ``state`` stays valid
+    after the call either way."""
+    del donate
+    return _engine.resolve(None, state.device).run(state, max_ticks, chunk)
+
+
+# ---------------------------------------------------------------------------
 # Fleet — the simulation facade
 # ---------------------------------------------------------------------------
 
@@ -262,6 +282,45 @@ class HartSpec:
         return f"{self.name}/{'guest' if self.guest else 'native'}"
 
 
+class StaleHartsError(RuntimeError):
+    """A ``fleet.harts`` reference was used after a later ``fleet.run``
+    replaced the state it viewed."""
+
+
+class _HartsView:
+    """Generation-checked view of the fleet's batched ``HartState``.
+
+    ``fleet.run`` replaces the fleet's state, so a reference taken before a
+    run would silently read the old one.  The view forwards attribute
+    access to the live state while its generation matches, and raises
+    :class:`StaleHartsError` afterwards."""
+
+    __slots__ = ("_fleet", "_gen")
+
+    def __init__(self, fleet: "Fleet", gen: int):
+        object.__setattr__(self, "_fleet", fleet)
+        object.__setattr__(self, "_gen", gen)
+
+    def _live(self) -> HartState:
+        if self._fleet._generation != self._gen:
+            raise StaleHartsError(
+                f"this fleet.harts reference is stale: it was taken at "
+                f"run-generation {self._gen} but the fleet is now at "
+                f"generation {self._fleet._generation} — re-read "
+                f"fleet.harts after each run")
+        return self._fleet._harts
+
+    def unwrap(self) -> HartState:
+        """The underlying ``HartState`` (generation-checked)."""
+        return self._live()
+
+    def __getattr__(self, name):
+        return getattr(self._live(), name)
+
+    def __repr__(self):
+        return f"<harts view gen={self._gen} of {self._fleet!r}>"
+
+
 class Fleet:
     """A batch of harts simulated in lockstep on one device.
 
@@ -269,19 +328,25 @@ class Fleet:
     >>> fleet.run(30_000)
     >>> fleet.report()["crc32/native"]["ok"]
     True
+
+    ``engine`` is a registered name (``"graph"``, ``"eager"``) or an object
+    with ``run(state, max_ticks, chunk)``; ``None`` takes the default of
+    the fleet's device, resolved once here.
     """
 
-    def __init__(self, harts: HartState, specs: Sequence[HartSpec]):
+    def __init__(self, harts: HartState, specs: Sequence[HartSpec],
+                 engine: Any = None):
         if harts.batch != len(specs):
             raise ValueError(f"{len(specs)} specs for {harts.batch} harts")
         self._harts = harts
         self._specs = list(specs)
-        self._engine = TorchEngine()
+        self._engine = _engine.resolve(engine, harts.device)
+        self._generation = 0
 
     @classmethod
     def boot(cls, workloads, guest: Union[bool, Sequence[bool]] = False,
              guests_per_hart: int = 1, timeslice: Optional[int] = None,
-             device=None) -> "Fleet":
+             device=None, engine: Any = None) -> "Fleet":
         """Assemble + batch bootable machines, one per workload.
 
         ``guest`` is a bool applied fleet-wide or a per-slot sequence.
@@ -289,7 +354,7 @@ class Fleet:
         ``timeslice``) boots the preemptive multi-guest images: each slot
         runs N guest VMs under the HS scheduler; a slot entry is a single
         workload (all N guests run it) or a length-N tuple.  ``device``
-        defaults to ``cuda``."""
+        defaults to ``cuda``; ``engine`` as in :class:`Fleet`."""
         dev = resolve(device)
         wls = list(workloads) if isinstance(workloads, (list, tuple)) \
             else [workloads]
@@ -317,7 +382,7 @@ class Fleet:
                               guests=g, timeslice=ts) for g in groups]
             states = [HartState.boot_preemptive(*g, timeslice=ts, device=dev)
                       for g in groups]
-            return cls(HartState.stack(states), specs)
+            return cls(HartState.stack(states), specs, engine=engine)
         guests = list(guest) if isinstance(guest, (list, tuple)) \
             else [bool(guest)] * len(wls)
         if len(guests) != len(wls):
@@ -326,19 +391,69 @@ class Fleet:
         specs = [HartSpec(w, g, w.name) for w, g in zip(wls, guests)]
         states = [HartState.boot(w, guest=g, device=dev)
                   for w, g in zip(wls, guests)]
-        return cls(HartState.stack(states), specs)
+        return cls(HartState.stack(states), specs, engine=engine)
 
     # -- running --------------------------------------------------------------
-    def run(self, max_ticks: int, chunk: int = 256) -> "Fleet":
+    def run(self, max_ticks: int, chunk: int = 4096) -> "Fleet":
         """Advance the whole fleet until every hart is done or the tick
-        budget (rounded up to whole chunks) is spent."""
+        budget (rounded up to whole chunks) is spent.  Bumps the run
+        generation: every earlier ``fleet.harts`` view goes stale."""
         self._harts = self._engine.run(self._harts, max_ticks, chunk=chunk)
+        self._generation += 1
         return self
+
+    # -- gem5-style checkpoint / restore ------------------------------------
+    def snapshot(self, path) -> str:
+        """Write the whole fleet state as a versioned ``.npz`` checkpoint
+        in the reference's layout (:mod:`.checkpoint`); a restored fleet
+        runs on bit-identically to one that was never stopped."""
+        from repro_torch.core.hext import checkpoint
+        return checkpoint.save(
+            str(path), self._harts, self._specs,
+            engine_name=getattr(self._engine, "name", "custom"))
+
+    @classmethod
+    def restore(cls, path, specs: Optional[Sequence[HartSpec]] = None,
+                engine: Any = None, device=None) -> "Fleet":
+        """Rebuild a fleet from a :meth:`snapshot` checkpoint (the
+        reference's files too) on ``device`` (default ``cuda``).
+
+        Specs are restored by workload name via the standard registry;
+        pass ``specs=`` when the snapshot ran workloads the registry cannot
+        resolve.  Raises ``checkpoint.CheckpointError`` on corrupted or
+        schema-incompatible files."""
+        from repro_torch.core.hext import checkpoint
+        harts, saved = checkpoint.load(str(path), decode_specs=specs is None,
+                                       device=device)
+        specs = list(saved if specs is None else specs)
+        if len(specs) != harts.batch:
+            raise ValueError(
+                f"{len(specs)} specs for {harts.batch} restored harts")
+        return cls(harts, specs, engine=engine)
 
     # -- introspection --------------------------------------------------------
     @property
-    def harts(self) -> HartState:
-        return self._harts
+    def engine(self) -> Any:
+        """The resolved execution backend this fleet runs on."""
+        return self._engine
+
+    @property
+    def harts(self) -> _HartsView:
+        """Generation-checked view of the batched state: a view taken
+        before a ``run`` raises :class:`StaleHartsError` after it.  Use
+        ``.unwrap()`` (or ``fleet[i]``) for the ``HartState`` itself."""
+        return _HartsView(self, self._generation)
+
+    def __getitem__(self, i: int) -> HartState:
+        """Hart ``i`` as a batch of one (the port keeps the hart
+        dimension; ``engine.diff_states(fa[i], fb[i])`` compares two)."""
+        i = range(len(self))[i]
+
+        def one(raw):
+            return {k: one(v) if isinstance(v, dict) else v[i:i + 1].clone()
+                    for k, v in raw.items()}
+
+        return HartState.from_raw(one(self._harts.to_raw()))
 
     @property
     def specs(self) -> List[HartSpec]:

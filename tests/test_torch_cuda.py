@@ -3,8 +3,10 @@
 The CPU path of every function is held against the JAX package by the
 other ``test_torch_*`` files; these hold the card against the CPU on the
 same seeded inputs (integer semantics of shifts, wrap-around and division
-on CUDA), and the CUDA ``pagewalk`` and ``paged_attention`` kernels against
-their plain versions.
+on CUDA), the CUDA ``pagewalk`` and ``paged_attention`` kernels against
+their plain versions, and the hext graph engine (device gates, one CUDA
+graph) against the eager engine, with a CPU snapshot restored onto the
+card.
 This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -16,6 +18,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import decode as D
+from repro_torch.core.hext import engine as E
 from repro_torch.core.hext import isa as I
 from repro_torch.core.hext import machine
 from repro_torch.core.hext import programs
@@ -672,3 +675,55 @@ def test_dense_lm_on_card_matches_cpu(cuda):
                                   pos.to(cuda), c_gpu)
         assert _rel(b, a) <= 2e-2
     assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# hext engines (last: nothing after them traces the card)
+# ---------------------------------------------------------------------------
+
+def _four_harts(dev, engine=None):
+    wls = [next(w for w in programs.WORKLOADS if w.name == n)
+           for n in ("sha", "fft")]
+    return Fleet.boot(wls * 2, guest=[False, False, True, True],
+                      device=dev, engine=engine)
+
+
+@pytest.mark.parametrize("ips", [1, 8])
+def test_graph_engine_matches_eager_engine(cuda, ips):
+    eager = _four_harts(cuda, "eager").run(512, chunk=512)
+    graph = _four_harts(cuda, E.GraphEngine(instrs_per_step=ips))
+    graph.run(512, chunk=512)
+    for i in range(4):
+        assert E.diff_states(graph.harts, eager.harts, i, i) == [], i
+    # a second run on the cached graph from a fresh boot agrees too, and
+    # the returned state does not alias the graph's static buffers
+    again = _four_harts(cuda, graph.engine).run(512, chunk=512)
+    held = again.harts.to_numpy()
+    _four_harts(cuda, graph.engine).run(64, chunk=64)
+    for i in range(4):
+        assert E.diff_arrays(held, i, again.harts.to_numpy(), i) == []
+        assert E.diff_states(again.harts, eager.harts, i, i) == [], i
+
+
+def test_graph_engine_raises_on_cpu_state(cuda):
+    with pytest.raises(ValueError, match="CUDA"):
+        E.GraphEngine().run(_four_harts("cpu").harts.unwrap(), 32, chunk=32)
+
+
+def test_cuda_fleet_default_engine_is_graph(cuda):
+    assert _four_harts(cuda).engine.name == "graph"
+    assert _four_harts("cpu").engine.name == "eager"
+    assert _four_harts(cuda, "eager").engine.name == "eager"
+
+
+def test_restore_onto_card_runs_on_bit_identical(cuda, tmp_path):
+    cpu = _four_harts("cpu").run(256, chunk=256)
+    path = cpu.snapshot(tmp_path / "fleet.npz")
+    card = Fleet.restore(path, device=cuda)
+    assert card.engine.name == "graph" and card.harts.device.type == "cuda"
+    for i in range(4):
+        assert E.diff_states(card.harts, cpu.harts, i, i) == [], i
+    cpu.run(256, chunk=256)
+    card.run(256, chunk=256)
+    for i in range(4):
+        assert E.diff_states(card.harts, cpu.harts, i, i) == [], i

@@ -23,6 +23,7 @@ def _imported_roots(tree):
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in FILES}
     for mod in ("device.py", "core/hext/machine.py", "core/hext/sim.py",
+                "core/hext/engine.py", "core/hext/checkpoint.py",
                 "kernels/pagewalk/kernel.py", "indexing.py",
                 "core/vmem/page_table.py", "core/vmem/allocator.py",
                 "core/vmem/kvcache.py", "kernels/paged_attention/ref.py",

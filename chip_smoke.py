@@ -37,6 +37,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  ``benchmarks/results/hext_runs.json`` (read, never
                  written); walls, lockstep and hart ticks/s, and the
                  device idle share of one profiled chunk are printed;
+                 then the fleet operations on the graph engine: (d) the
+                 fixed-seed torture corpus (seed 2026, 256 scenarios) as
+                 two fleets, fuzz (224 harts x 16,384 words, 1,536 ticks)
+                 and sched (32 harts x 65,536 words, 6,144 ticks), each
+                 run on the graph engine and on ``OracleEngine`` from one
+                 ``from_corpus`` boot and diffed hart by hart (0
+                 mismatches, at least the 218 coverage buckets of
+                 ``benchmarks/results/torture_coverage_baseline.json``),
+                 a control (x7 of one hart changed after the graph's run
+                 must be reported alone, and its repro line with that
+                 fault injected must exit 1) and ``--case 7 -v``; (e) a
+                 2-hart N=2 fleet (sha+crc32, stringsearch+fft,
+                 timeslice 300): a migration mid run, a park to a file
+                 and a resume into the freed slot, every guest at its
+                 golden, then ``replace_hart`` of a lane with a fresh
+                 boot run to its golden with no new graph captured; (f)
+                 the service: fft, sha, crc32, stringsearch at N=2 and a
+                 native sha and a guest fft on solo lanes, drained, every
+                 counter field equal to a direct boot of the same groups;
 5. vmem        — the two-stage paged KV cache at one attention layer of
                  Qwen3-30B-A3B (H=32, KV=4, hd=128, bf16 pools of 32768
                  slots x 16 tokens, 512 MiB each): 8 tenants x 16 requests
@@ -99,6 +118,11 @@ long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
 all nine, up to 118,264 ticks), each held to the goldens, and prints no
 result line.
 
+``--serve`` runs only the 16-submission trace of the reference's serve
+smoke (``benchmarks/run_serve.py --smoke``, carried here) through the
+port's ``FleetService``: every checksum at its golden and at least one
+migration, park and recovery, with the wall; it prints no result line.
+
 ``--walk-times [--src DIR]`` runs only the pagewalk timings of phases 3
 and 5 for the ``repro_torch`` under ``DIR`` (default: this checkout's
 ``src``), so a parent commit unpacked beside this one can be timed in
@@ -112,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -148,6 +173,15 @@ HEXT_MAX_TICKS = 30000             # susan guest needs 25,363
 HEXT_PREEMPT_MAX_TICKS = 4096      # (c) the short column needs <= 3,069
 HEXT_CHUNK = 1024                  # one all(done) read per 1024 ticks
 HEXT_PROFILE_TICKS = 64
+# (d) the torture corpus: the reference's fixed seed and count; the floor
+# of coverage buckets is the reference's committed baseline
+TORTURE_COUNT = 256
+TORTURE_CONTROL_CASES = 7          # the mutation control: cases 0..6, fuzz
+TORTURE_REPLAY_CASE = 7            # a sched-family case, replayed by --case
+# (e) guest operations and (f) the service: the reference tests' shapes
+GUEST_TIMESLICE = 300
+SERVE_SLICE_TICKS = 2048
+SERVE_CHUNK = 512
 
 # vmem: one attention layer of Qwen3-30B-A3B
 # (src/repro/configs/qwen3_moe_30b_a3b.py) over a decode batch of 8 tenants
@@ -725,6 +759,273 @@ def hext_matrix(torch, dev) -> None:
               workloads="+".join(w.name for w in wls),
               all_counters_match=True, engine=fleet.engine.name,
               **hext_rates(report, wall))
+
+
+def torture_phase(torch, dev) -> None:
+    """(d) the fixed-seed 256-scenario corpus, per family one
+    ``from_corpus`` boot on the graph engine and on ``OracleEngine``,
+    every hart diffed; the coverage floor; a mutation control that must be
+    reported with a repro line that re-runs it; ``--case 7 -v``."""
+    from repro_torch.core.hext import engine, torture
+
+    floor = json.loads((ROOT / "benchmarks/results/"
+                        "torture_coverage_baseline.json").read_text())
+    eng = engine.GraphEngine()
+    rep = torture.run_corpus(SEED, TORTURE_COUNT, device=dev, engine=eng)
+    for family, f in rep["families"].items():
+        phase("torture", family=family, harts=f["harts"],
+              mem_words=f["mem_words"], ticks=f["ticks"],
+              engine=f["engine"], capture_s=f"{f['capture_s']:.3f}",
+              machine_wall_s=f"{f['wall_machine']:.3f}",
+              oracle_wall_s=f"{f['wall_oracle']:.3f}")
+    buckets = rep["coverage"]["buckets"]
+    phase("torture", scenarios=TORTURE_COUNT,
+          mismatches=len(rep["failures"]), coverage_buckets=buckets,
+          baseline_buckets=floor["buckets"],
+          machine_wall_s=f"{rep['wall_machine']:.3f}",
+          oracle_wall_s=f"{rep['wall_oracle']:.3f}",
+          machine_scenarios_per_s=f"{rep['scenarios_per_sec_batched']:.2f}",
+          capture_s=f"{rep['capture_s']:.3f}", graphs=eng.n_graphs)
+    if rep["failures"]:
+        for f in rep["failures"][:8]:
+            print(f"  case {f['case']} ({f['mode']}): {f['diff'][:4]}\n"
+                  f"    repro: {f['repro']}", flush=True)
+        raise RuntimeError(f"torture: {len(rep['failures'])} mismatches "
+                           f"between the graph engine and the oracle")
+    if buckets < floor["buckets"]:
+        raise RuntimeError(f"torture: {buckets} coverage buckets, below "
+                           f"the baseline's {floor['buckets']}")
+    if eng.n_graphs != 2:
+        raise RuntimeError(f"torture: {eng.n_graphs} graphs captured for "
+                           f"the two families")
+
+    # the control: the same path with one leaf of one hart's machine state
+    # changed must be reported, and its repro line must re-run the case
+    class Mutated:
+        name = "graph+x7"
+
+        def run(self, state, max_ticks, chunk=4096):
+            out = eng.run(state, max_ticks, chunk)
+            regs = out.regs.clone()
+            regs[-1, 7] ^= 0xDEAD
+            return out.replace(regs=regs)
+
+    ctl = torture.run_corpus(SEED, TORTURE_CONTROL_CASES, device=dev,
+                             engine=Mutated())
+    last = TORTURE_CONTROL_CASES - 1
+    caught = [f["case"] for f in ctl["failures"]]
+    if caught != [last] or not ctl["failures"][0]["diff"][0].startswith(
+            "x7:"):
+        raise RuntimeError(f"torture: the mutated x7 of case {last} was "
+                           f"not reported alone: {ctl['failures']}")
+    line = ctl["failures"][0]["repro"]
+    args = line.split(" -m repro_torch.core.hext.torture ")[1].split()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc_fault = torture.main(args + ["--inject-fault", "x7"])
+        t0 = time.perf_counter()
+        rc_case = torture.main(["--seed", str(SEED), "--case",
+                                str(TORTURE_REPLAY_CASE), "-v"])
+        case_s = time.perf_counter() - t0
+    if rc_fault != 1 or rc_case != 0:
+        raise RuntimeError(f"torture: the repro line {line!r} with an "
+                           f"injected fault exited {rc_fault} (want 1); "
+                           f"--case {TORTURE_REPLAY_CASE} exited {rc_case} "
+                           f"(want 0)")
+    phase("torture", control=f"x7 of case {last} mutated", caught=True,
+          repro=repr(line), repro_with_fault_rc=rc_fault,
+          case=TORTURE_REPLAY_CASE, case_rc=rc_case,
+          case_wall_s=f"{case_s:.3f}")
+
+
+def guest_phase(torch, dev) -> None:
+    """(e) a 2-hart N=2 fleet of short workloads: a migration mid run, a
+    park to a file and a resume into a free slot, every hart to its
+    golden; then ``replace_hart`` of one lane with a fresh boot, run to
+    its golden with no new graph captured."""
+    from repro_torch.core.hext import programs
+    from repro_torch.core.hext.sim import (Fleet, HartSpec, HartState,
+                                           MigrationError)
+
+    by = {w.name: w for w in programs.WORKLOADS}
+    sha, crc, ss, fft = (by[n] for n in ("sha", "crc32", "stringsearch",
+                                         "fft"))
+    t_start = time.perf_counter()
+    fleet = Fleet.boot([(sha, crc), (ss, fft)], guests_per_hart=2,
+                       timeslice=GUEST_TIMESLICE, device=dev)
+    eng = fleet.engine
+
+    def retry(op):
+        for attempt in range(12):
+            try:
+                return op(), attempt
+            except MigrationError:
+                fleet.run(GUEST_TIMESLICE, chunk=GUEST_TIMESLICE)
+        raise RuntimeError("guest: the guest never became movable")
+
+    fleet.run(1000, chunk=500)
+    _, m_tries = retry(lambda: fleet.migrate_guest(0, 1, guest=1))
+    with tempfile.TemporaryDirectory() as tmp:
+        _, p_tries = retry(lambda: fleet.park_guest(1, 1,
+                                                    Path(tmp) / "g.npz"))
+        _, r_tries = retry(lambda: fleet.resume_guest(
+            0, Path(tmp) / "g.npz"))
+    fleet.run(30000, chunk=HEXT_CHUNK)
+    rep = fleet.report()
+    want = {"sha+crc32/2guest-preempt": [True, True],
+            "stringsearch+parked/2guest-preempt": [True, None]}
+    got = {k: v["ok_guests"] for k, v in rep.items()}
+    if got != want or not all(v["ok"] and v["done"] for v in rep.values()):
+        raise RuntimeError(f"guest: after migrate, park and resume the "
+                           f"report is {rep}")
+    graphs = eng.n_graphs
+    ops_s = time.perf_counter() - t_start
+    phase("guest", migrate_retries=m_tries, park_retries=p_tries,
+          resume_retries=r_tries, all_goldens=True,
+          lockstep_ticks=max(v["ticks"] for v in rep.values()),
+          engine=eng.name, wall_s=f"{ops_s:.3f}")
+
+    t0 = time.perf_counter()
+    fleet.replace_hart(1, HartState.boot_preemptive(
+        fft, sha, timeslice=GUEST_TIMESLICE, device=dev),
+        HartSpec(fft, True, "fft+sha", guests=(fft, sha),
+                 timeslice=GUEST_TIMESLICE))
+    fleet.run(30000, chunk=HEXT_CHUNK)
+    entry = fleet.report()["fft+sha/2guest-preempt"]
+    if not entry["ok"] or entry["ok_guests"] != [True, True]:
+        raise RuntimeError(f"guest: the replaced lane ended {entry}")
+    if fleet.engine is not eng or eng.n_graphs != graphs:
+        raise RuntimeError(f"guest: replace_hart captured a new graph "
+                           f"({graphs} -> {eng.n_graphs})")
+    phase("guest", replace_hart="lane 1 <- fft+sha", golden=True,
+          graphs=eng.n_graphs, new_graphs=0,
+          wall_s=f"{time.perf_counter() - t0:.3f}")
+
+
+def service_phase(torch, dev) -> None:
+    """(f) the reference's daemon-vs-direct cohort: fft, sha, crc32 and
+    stringsearch at N=2 and a native sha and a guest fft on solo lanes;
+    every counter field equal to a direct boot of the same groups."""
+    from repro_torch.core.hext import programs
+    from repro_torch.core.hext.policies import BinPackPolicy
+    from repro_torch.core.hext.service import FleetService
+    from repro_torch.core.hext.sim import Fleet, HartState
+
+    by = {w.name: w for w in programs.WORKLOADS}
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = FleetService(n_harts=2, guests_per_hart=2, n_solo=2,
+                           timeslice=GUEST_TIMESLICE,
+                           slice_ticks=SERVE_SLICE_TICKS, chunk=SERVE_CHUNK,
+                           snapshot_dir=tmp, device=dev,
+                           policy=BinPackPolicy(partial_after=0))
+        vm = [svc.submit(by[n], tenant=t) for t, n in
+              enumerate(("fft", "sha", "crc32", "stringsearch"))]
+        nat = svc.submit(by["sha"], tenant=8, mode="native")
+        gst = svc.submit(by["fft"], tenant=9, mode="guest")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.step()
+        placed = {(svc.job(i).lane, svc.job(i).slot): svc.job(i).workload
+                  for i in vm}
+        groups = [tuple(placed[(lane, s)] for s in range(2))
+                  for lane in (0, 1)]
+        solo_order = [svc.job(nat).lane, svc.job(gst).lane]
+        ok = svc.drain(200)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        if not ok or svc.stats["completed"] != 6:
+            raise RuntimeError(f"service: drain ok={ok}, {svc.stats}")
+        states = [HartState.boot_preemptive(*g, timeslice=GUEST_TIMESLICE,
+                                            device=dev) for g in groups]
+        states += [HartState.boot(by["sha"], device=dev),
+                   HartState.boot(by["fft"], guest=True, device=dev)]
+        direct = Fleet.from_states(states)
+        t0 = time.perf_counter()
+        while not direct.all_done:
+            direct.run(SERVE_SLICE_TICKS, chunk=SERVE_CHUNK)
+        direct_s = time.perf_counter() - t0
+        want = direct.harts.counters
+        pod, solo = svc._pod.harts.counters, svc._solo.harts.counters
+        idx = torch.tensor(solo_order, device=dev)
+        bad = [k for k in (f.name for f in dataclasses.fields(want))
+               if not torch.equal(getattr(pod, k), getattr(want, k)[:2])
+               or not torch.equal(getattr(solo, k)[idx],
+                                  getattr(want, k)[2:])]
+        if bad:
+            raise RuntimeError(f"service: counters differ from a direct "
+                               f"boot in {bad}")
+        phase("service", jobs=6, all_counters_equal_direct=True,
+              slices=svc.slices, drain_wall_s=f"{drain_s:.3f}",
+              direct_wall_s=f"{direct_s:.3f}",
+              engines=f"{svc._pod.engine.name}/{svc._solo.engine.name}",
+              pod_graphs=svc._pod.engine.n_graphs,
+              solo_graphs=svc._solo.engine.n_graphs)
+
+
+# the 16-submission trace of the reference's serve smoke: a full N=3 cohort
+# of long guests at slice 0, a long 4th tenant at slice 2 (a partial cohort:
+# the shed window), a burst of short jobs at slice 6 (queue pressure: an
+# eviction), one native solo job, and a hart failure at slice 10 (recovery)
+SERVE_NAMES = (("susan", "dijkstra", "bitcount", "qsort", "sha", "crc32",
+                "stringsearch", "fft", "sha", "crc32", "stringsearch", "fft",
+                "sha", "crc32", "basicmath"))
+SERVE_ARRIVALS = (0, 0, 0, 2) + (6,) * 11
+SERVE_FAIL_AT = 10
+
+
+def serve_smoke(torch, dev) -> None:
+    """``--serve``: the 16-submission trace through the port's service;
+    every checksum at its golden, at least one migration, park and
+    recovery, and the wall."""
+    from repro_torch.core.hext import programs
+    from repro_torch.core.hext.policies import BinPackPolicy
+    from repro_torch.core.hext.service import DONE, FleetService
+
+    by = {w.name: w for w in programs.WORKLOADS}
+    picks = [(by[n], t % 8, "vm") for t, n in enumerate(SERVE_NAMES)]
+    picks.append((by["dijkstra"], 7, "native"))
+    arrivals = SERVE_ARRIVALS + (6,)
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = FleetService(
+            n_harts=2, guests_per_hart=3, n_solo=1,
+            timeslice=GUEST_TIMESLICE, slice_ticks=SERVE_SLICE_TICKS,
+            chunk=SERVE_CHUNK, snapshot_every=3, fail_after=2,
+            snapshot_dir=tmp, device=dev,
+            policy=BinPackPolicy(max_queue=16, partial_after=1,
+                                 shed_margin=2))
+        k, failed = 0, False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while k < len(arrivals) or any(not j.terminal for j in svc.jobs()):
+            while k < len(arrivals) and arrivals[k] <= svc.slices:
+                wl, tenant, mode = picks[k]
+                svc.submit(wl, tenant=tenant, mode=mode)
+                k += 1
+            if not failed and svc.slices >= SERVE_FAIL_AT:
+                lanes = [i for i, l in enumerate(svc._pod_lanes) if l.active]
+                if lanes:
+                    svc.inject_hart_failure(lanes[-1], pool="pod")
+                    failed = True
+            svc.step()
+            if svc.slices >= 2000:
+                raise RuntimeError("serve: the trace did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    done = [j for j in svc.jobs() if j.state == DONE]
+    checks = {
+        "all_goldens_ok": len(done) == 16 and all(j.ok for j in done),
+        "shed_happened": svc.stats["migrations"] >= 1,
+        "park_happened": svc.stats["parks"] >= 1,
+        "recovery_happened": svc.stats["recoveries"] >= 1,
+    }
+    m = svc.metrics()
+    phase("serve", submissions=16, wall_s=f"{wall:.3f}", slices=m["slices"],
+          ticks=m["ticks"], guests_per_s=f"{len(done) / wall:.3f}",
+          **checks, **{k: m[k] for k in ("migrations", "parks", "resumes",
+                                         "recoveries", "balloons")},
+          pod_graphs=svc._pod.engine.n_graphs,
+          solo_graphs=svc._solo.engine.n_graphs)
+    if not all(checks.values()):
+        raise RuntimeError(f"serve: checks failed: {checks}")
 
 
 def close(got, want, tol, what) -> float:
@@ -1740,6 +2041,9 @@ def main(argv=None) -> int:
                     "out (the long four's 1guest-preempt, all nine's "
                     "2guest- and 4guest-preempt), each held to the goldens "
                     "(no other phase, no result line)")
+    ap.add_argument("--serve", action="store_true",
+                    help="only the 16-submission serve trace through the "
+                    "port's service (no other phase, no result line)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is run (so "
                     "two checkouts can be timed in turns in one call)")
@@ -1764,6 +2068,12 @@ def main(argv=None) -> int:
         phase("hext-matrix", torch=torch.__version__)
         print(smi, flush=True)
         hext_matrix(torch, dev)
+        print(smi, flush=True)
+        return 0
+    if args.serve:
+        phase("serve", torch=torch.__version__)
+        print(smi, flush=True)
+        serve_smoke(torch, dev)
         print(smi, flush=True)
         return 0
     t_start = time.perf_counter()
@@ -1796,6 +2106,14 @@ def main(argv=None) -> int:
     # later trace of the pagewalk calls there held no spin kernels
     # (PERF.md §7)
     hext_phase(torch, dev)
+    # the fleet operations on the graph engine: torture, guest operations,
+    # the service
+    for fleet_phase in (torture_phase, guest_phase, service_phase):
+        t0 = time.perf_counter()
+        fleet_phase(torch, dev)
+        torch.cuda.empty_cache()
+        phase(fleet_phase.__name__[:-len("_phase")],
+              phase_wall_s=f"{time.perf_counter() - t0:.1f}")
     phase("smoke", wall_s=f"{time.perf_counter() - t_start:.1f}")
 
     print(smi, flush=True)

@@ -3,7 +3,7 @@
 An :class:`Engine` advances a batched ``HartState`` by up to ``max_ticks``
 ticks and returns the final state.  Engines are resolved by name through
 the registry (:func:`resolve`); any object with a ``run(state, max_ticks,
-chunk=...)`` method is taken as an engine.  Two backends are registered:
+chunk=...)`` method is taken as an engine.  Four backends are registered:
 
 * ``"eager"`` — :class:`TorchEngine`, a Python loop of
   ``machine.step_batched`` with the four batch-level gates read on the
@@ -13,11 +13,18 @@ chunk=...)`` method is taken as an engine.  Two backends are registered:
   ``JitEngine``: ``instrs_per_step`` ticks of ``step_batched(...,
   gates="device")`` captured once as a CUDA graph and replayed, with one
   ``all(done)`` host read a chunk.  It runs only on a CUDA state.
+* ``"oracle"`` — :class:`OracleEngine`, the pure-Python architectural
+  oracle (:mod:`.oracle`) behind the same interface: the state comes to
+  the host in one batched copy, each hart is stepped by ``oracle.step``,
+  and the final states go back to the input's device.  The torture
+  harness's reference leg.
+* ``"sharded"`` — :class:`ShardedEngine`, the batch padded, split across
+  devices and run on each device's default engine.
 
-Both keep the reference's semantics: the budget rounds up to whole
-chunks, the run stops before a chunk once every hart is done, and done
-harts are frozen, so any extra ticks change nothing.  Neither writes into
-the caller's tensors.
+All keep the reference's semantics: the budget rounds up to whole
+chunks, the run stops once every hart is done (the oracle: each hart on
+its own), and done harts are frozen, so any extra ticks change nothing.
+None writes into the caller's tensors.
 
 :func:`diff_states` is the field-by-field architectural differential
 compare of the reference (``DIFF_SCALARS``/``DIFF_COUNTERS``, every
@@ -26,15 +33,18 @@ register, CSR and memory word).
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Protocol, runtime_checkable
+from typing import (Any, Callable, Dict, List, Optional, Protocol,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import machine as _machine
+from repro_torch.core.hext import oracle as _oracle
 
-__all__ = ["Engine", "TorchEngine", "GraphEngine", "ENGINES",
+__all__ = ["Engine", "TorchEngine", "GraphEngine", "OracleEngine",
+           "ShardedEngine", "ENGINES",
            "register_engine", "resolve",
            "CapturedTicks",
            "diff_states", "diff_arrays", "state_arrays", "DIFF_SCALARS",
@@ -218,6 +228,11 @@ class GraphEngine:
         self._graphs: Dict[tuple, CapturedTicks] = {}
         self.last_capture_s = 0.0
 
+    @property
+    def n_graphs(self) -> int:
+        """Graphs this engine has captured and holds."""
+        return len(self._graphs)
+
     def run(self, state, max_ticks: int, chunk: int = 4096):
         ips = _check_ips(chunk, self._ips)
         if state.device.type != "cuda":
@@ -241,8 +256,169 @@ class GraphEngine:
         return type(state).from_raw(g.state())
 
 
+# ---------------------------------------------------------------------------
+# OracleEngine — the pure-Python reference model as a backend
+# ---------------------------------------------------------------------------
+
+_U64_LEAVES = ("pc", "regs", "csrs", "mem", "exit_code")
+
+
+def _snapshot_row(arrs: Dict, i: int) -> Dict[str, Any]:
+    """Hart ``i`` of the host arrays of :func:`state_arrays` as the
+    oracle's plain-Python snapshot (uint64 leaves as non-negative ints)."""
+    t = arrs["tlb"]
+    snap = {k: arrs[k][i].tolist() for k in arrs if k != "tlb"}
+    snap["tlb"] = {k: v[i].tolist() for k, v in t.items()}
+    return snap
+
+
+def _adopt_row(osts: List[Dict]) -> Dict[str, Any]:
+    """Oracle final states → the reference's raw-dict layout (numpy, with
+    its dtypes) for ``HartState.from_numpy`` on ``device``.  Python ints
+    of 2**63 or more become int64 bit patterns through uint64."""
+    def u64(key, src=None):
+        return np.array([(o if src is None else o[src])[key] for o in osts],
+                        dtype=np.uint64)
+
+    def i64(key, src=None):
+        return u64(key, src).view(np.int64)
+
+    def flag(key, src=None):
+        return np.array([(o if src is None else o[src])[key] for o in osts],
+                        dtype=bool)
+
+    raw = {k: u64(k) for k in _U64_LEAVES}
+    raw.update({k: i64(k) for k in ("priv", "console", "exc_by_level",
+                                    "int_by_level") + DIFF_COUNTERS})
+    raw.update({k: flag(k) for k in ("virt", "halted", "done")})
+    raw["tlb"] = {k: u64(k, "tlb") for k in ("vpn", "ppn")}
+    raw["tlb"].update({k: i64(k, "tlb")
+                       for k in ("level", "perm", "priv", "ptr")})
+    raw["tlb"].update({k: flag(k, "tlb")
+                       for k in ("guest", "sum", "mxr", "valid")})
+    return raw
+
+
+class OracleEngine:
+    """The pure-Python architectural oracle behind the Engine interface.
+
+    The state comes to the host in one batched copy (:func:`state_arrays`),
+    each hart is stepped by ``oracle.step`` for the same rounded-up budget
+    the device engines run (``_n_chunks(max_ticks, chunk) * chunk`` ticks,
+    each hart stopping on ``done``), and the final states go back to the
+    input's device in one copy per leaf.  The oracle models the software
+    TLB and ``walks`` bit-exactly, so every leaf is diffable.
+
+    After :meth:`run`, ``last_events`` holds one frozenset of
+    architectural-event tuples per hart (trap / fence / atp / wfi
+    signatures) — the torture harness's coverage buckets.  Events are
+    never part of the differential comparison."""
+
+    name = "oracle"
+
+    def __init__(self):
+        self.last_events: List[frozenset] = []
+
+    def run(self, state, max_ticks: int, chunk: int = 4096):
+        total = _n_chunks(max_ticks, chunk) * int(chunk)
+        arrs = state_arrays(state)
+        outs = []
+        for i in range(state.batch):
+            ost = _oracle.resume_state(_snapshot_row(arrs, i))
+            for _ in range(total):
+                if ost["done"]:
+                    break
+                _oracle.step(ost)
+            outs.append(ost)
+        self.last_events = [frozenset(o.get("events", ())) for o in outs]
+        return type(state).from_numpy(_adopt_row(outs),
+                                      device=state.device)
+
+
+# ---------------------------------------------------------------------------
+# ShardedEngine — the batch split across devices
+# ---------------------------------------------------------------------------
+
+def _default_engine(device, ips: int):
+    return (GraphEngine if torch.device(device).type == "cuda"
+            else TorchEngine)(instrs_per_step=ips)
+
+
+class ShardedEngine:
+    """Data-parallel backend: shard the hart batch across ``devices``
+    (default: every CUDA device for a CUDA state, the state's device
+    otherwise).
+
+    The batch is padded to a device multiple by repeating harts with
+    ``done=True`` (frozen, and invisible to each shard's ``all(done)``
+    stop), split into contiguous shards, each run on its device's default
+    engine (graph on CUDA, eager on the CPU; the shards run one after
+    another), then concatenated on the input's device with the padding
+    cut off.  Harts are independent, so counters are bit-identical to one
+    device's run.  With one device, or one hart, it is that device's
+    default engine.  Each device's engine is kept, with its graphs."""
+
+    name = "sharded"
+
+    def __init__(self, devices: Optional[list] = None,
+                 instrs_per_step: int = 1):
+        self._devices = devices
+        self._ips = int(instrs_per_step)
+        self._engines: Dict[torch.device, Any] = {}
+
+    def _engine(self, dev: torch.device):
+        if dev not in self._engines:
+            self._engines[dev] = _default_engine(dev, self._ips)
+        return self._engines[dev]
+
+    def _shard(self, state, dev, max_ticks, chunk):
+        return self._engine(dev).run(state.to(dev), max_ticks, chunk) \
+            .to(state.device)
+
+    def run(self, state, max_ticks: int, chunk: int = 4096):
+        _check_ips(chunk, self._ips)
+        if self._devices is not None:
+            devs = [torch.device(d) for d in self._devices]
+        elif state.device.type == "cuda":
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        else:
+            devs = [state.device]
+        b = state.batch
+        if len(devs) < 2 or b < 2:
+            return self._shard(state, devs[0], max_ticks, chunk)
+        d = min(len(devs), b)
+        per = -(-b // d)
+        idx = torch.arange(per * d, device=state.device) % b
+
+        def pad(raw):
+            return {k: pad(v) if isinstance(v, dict) else v[idx]
+                    for k, v in raw.items()}
+
+        raw = pad(state.to_raw())
+        raw["done"][b:] = True
+        padded = type(state).from_raw(raw)
+
+        def part(raw, k):
+            return {j: part(v, k) if isinstance(v, dict)
+                    else v[k * per:(k + 1) * per] for j, v in raw.items()}
+
+        outs = [self._shard(type(state).from_raw(part(padded.to_raw(), k)),
+                            devs[k], max_ticks, chunk).to_raw()
+                for k in range(d)]
+
+        def join(parts):
+            if isinstance(parts[0], dict):
+                return {j: join([p[j] for p in parts]) for j in parts[0]}
+            return torch.cat(parts)[:b]
+
+        return type(state).from_raw(join(outs))
+
+
 register_engine("eager", TorchEngine)
 register_engine("graph", GraphEngine)
+register_engine("oracle", OracleEngine)
+register_engine("sharded", ShardedEngine)
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,19 @@ counterpart of ``repro.core.hext.sim``.
   package's raw-dict layout (numpy arrays, uint64 leaves), which is how
   one state is put through both packages.
 * ``Fleet`` — ``Fleet.boot(workloads, guest=...)`` assembles system
-  images and batches them, ``fleet.run(max_ticks)`` advances every
-  machine in lockstep through its engine (``engine.resolve``: ``"graph"``
-  on a CUDA fleet, ``"eager"`` on a CPU fleet, unless the caller names
-  one), ``fleet.counters()`` / ``fleet.report()`` read the paper's
-  counters back out, and ``fleet.snapshot`` / ``Fleet.restore`` write and
-  read the reference's checkpoint format (:mod:`.checkpoint`).
+  images and batches them (``from_states`` / ``from_images`` /
+  ``from_corpus`` batch pre-built states or raw images, the torture
+  corpus among them), ``fleet.run(max_ticks)`` advances every machine in
+  lockstep through its engine (``engine.resolve``: ``"graph"`` on a CUDA
+  fleet, ``"eager"`` on a CPU fleet, unless the caller names one),
+  ``fleet.counters()`` / ``fleet.report()`` read the paper's counters
+  back out, ``fleet.snapshot`` / ``Fleet.restore`` write and read the
+  reference's checkpoint format (:mod:`.checkpoint`), and
+  ``migrate_guest`` / ``park_guest`` / ``resume_guest`` / ``replace_hart``
+  are the control plane's guest and lane operations.  A guest operation
+  reads the few words its preconditions need in one small host copy and
+  moves the guest's regions with device-side slice copies; only a park or
+  a resume moves those regions through the host (the checkpoint file).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`repro_torch.device.resolve`).
@@ -34,7 +41,7 @@ from repro_torch.device import resolve
 MASK64 = (1 << 64) - 1
 
 __all__ = ["Counters", "HartState", "Fleet", "HartSpec", "checksum_ok",
-           "run_on_device", "StaleHartsError"]
+           "run_on_device", "StaleHartsError", "MigrationError"]
 
 
 def checksum_ok(exit_code, golden: int) -> bool:
@@ -53,6 +60,14 @@ _U64_KEYS = ("pc", "regs", "csrs", "mem", "exit_code")
 _I32_KEYS = ("priv",)
 _TLB_U64 = ("vpn", "ppn")
 _TLB_I32 = ("level", "perm", "priv", "ptr")
+
+
+def _words(image) -> np.ndarray:
+    """A uint64-word image (numpy, a sequence of ints or an int64 tensor
+    of bit patterns) as int64 bit patterns."""
+    if isinstance(image, torch.Tensor):
+        return image.detach().cpu().numpy().astype(np.int64)
+    return np.asarray(image, dtype=np.uint64).view(np.int64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +241,28 @@ class HartState:
                               device=self.mem.device)
         return self.replace(mem=img.expand(self.batch, -1).clone())
 
+    def or_image(self, image, base: int = 0) -> "HartState":
+        """OR a uint64-word image into every hart's memory at byte address
+        ``base`` (a merge, unlike :meth:`with_mem`: the semantics test
+        harnesses want when layering fragments onto a zeroed machine)."""
+        img = torch.as_tensor(_words(image), device=self.mem.device)
+        w = base >> 3
+        mem = self.mem.clone()
+        mem[..., w:w + img.shape[-1]] |= img
+        return self.replace(mem=mem)
+
+    def to(self, device) -> "HartState":
+        """Every leaf on ``device`` (the state itself if already there)."""
+        dev = torch.device(device)
+        if self.device == dev:
+            return self
+
+        def move(raw):
+            return {k: move(v) if isinstance(v, dict) else v.to(dev)
+                    for k, v in raw.items()}
+
+        return HartState.from_raw(move(self.to_raw()))
+
     @property
     def batch(self) -> int:
         return int(self.pc.shape[0])
@@ -253,6 +290,11 @@ def run_on_device(state: HartState, max_ticks: int, chunk: int = 4096,
     after the call either way."""
     del donate
     return _engine.resolve(None, state.device).run(state, max_ticks, chunk)
+
+
+def _gi_done_word(lay, guest: int) -> int:
+    """Word index of slot ``guest``'s ginfo done flag."""
+    return (lay.ginfo0 + guest * programs.GINFO_SIZE + 24) >> 3
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +326,12 @@ class HartSpec:
 
 class StaleHartsError(RuntimeError):
     """A ``fleet.harts`` reference was used after a later ``fleet.run``
-    replaced the state it viewed."""
+    (or guest operation) replaced the state it viewed."""
+
+
+class MigrationError(RuntimeError):
+    """A guest-operation precondition does not hold (wrong slot kind,
+    guest currently scheduled, hart already exited, ...)."""
 
 
 class _HartsView:
@@ -393,6 +440,64 @@ class Fleet:
                   for w, g in zip(wls, guests)]
         return cls(HartState.stack(states), specs, engine=engine)
 
+    @classmethod
+    def from_states(cls, states: Sequence[HartState],
+                    specs: Optional[Sequence[HartSpec]] = None,
+                    engine: Any = None) -> "Fleet":
+        """Fleet over pre-built states (each a batch of one or more harts,
+        all on one device), stacked in order."""
+        states = list(states)
+        harts = states[0] if len(states) == 1 else HartState.stack(states)
+        if specs is None:
+            specs = [HartSpec(None, False, f"hart{i}")
+                     for i in range(harts.batch)]
+        return cls(harts, specs, engine=engine)
+
+    @classmethod
+    def from_images(cls, images: Sequence[Any],
+                    mem_words: int = _machine.DEFAULT_MEM_WORDS,
+                    names: Optional[Sequence[str]] = None,
+                    engine: Any = None, device=None) -> "Fleet":
+        """Fleet of fresh harts, each booted from a raw uint64-word image
+        (shorter images are zero-padded; an oversized one is an error).
+        The images go to ``device`` (default ``cuda``) in one copy."""
+        imgs = [_words(im) for im in images]
+        if not imgs:
+            raise ValueError("Fleet needs at least one hart")
+        mem = np.zeros((len(imgs), int(mem_words)), dtype=np.int64)
+        for i, im in enumerate(imgs):
+            if int(im.shape[0]) > mem_words:
+                raise ValueError(
+                    f"image {i} has {int(im.shape[0])} words > "
+                    f"mem_words={mem_words}")
+            mem[i, :im.shape[0]] = im
+        state = HartState.fresh(int(mem_words), batch=len(imgs),
+                                device=device).or_image(mem)
+        specs = None if names is None else \
+            [HartSpec(None, False, str(n)) for n in names]
+        return cls.from_states([state], specs, engine=engine)
+
+    @classmethod
+    def from_corpus(cls, images: Sequence[Any],
+                    names: Optional[Sequence[str]] = None,
+                    mem_words: Optional[int] = None,
+                    engine: Any = None, device=None) -> "Fleet":
+        """Batch a scenario corpus (possibly differently sized images) as
+        ONE fleet: every image is zero-padded to a common word count, so
+        the whole corpus runs as one batch (one captured graph on the
+        card) — the batched-fuzz mode of the torture harness.
+        ``mem_words`` defaults to the largest image rounded up to a power
+        of two."""
+        if not len(images):
+            raise ValueError("from_corpus needs at least one image")
+        if mem_words is None:
+            m = max(len(im) for im in images)
+            mem_words = 1 << max(m - 1, 1).bit_length()
+        if names is None:
+            names = [f"case{i}" for i in range(len(images))]
+        return cls.from_images(images, mem_words, names=names,
+                               engine=engine, device=device)
+
     # -- running --------------------------------------------------------------
     def run(self, max_ticks: int, chunk: int = 4096) -> "Fleet":
         """Advance the whole fleet until every hart is done or the tick
@@ -430,6 +535,251 @@ class Fleet:
             raise ValueError(
                 f"{len(specs)} specs for {harts.batch} restored harts")
         return cls(harts, specs, engine=engine)
+
+    # -- live guest migration, park / resume, lane replacement ---------------
+    def _guest_words(self, harts: Sequence[int], guest: int,
+                     lay) -> Dict[int, Dict[str, int]]:
+        """``done``, ``virt``, the ``SCHED_CUR`` word and slot ``guest``'s
+        ginfo done word of each hart in ``harts``, in one host copy."""
+        h = self._harts
+        rows = torch.tensor(list(harts), device=h.device)
+        cols = torch.tensor([programs.SCHED_CUR >> 3,
+                             _gi_done_word(lay, guest)], device=h.device)
+        words = torch.cat([h.counters.done[rows, None].long(),
+                           h.virt[rows, None].long(),
+                           h.mem[rows[:, None], cols[None, :]]], 1)
+        return {i: dict(zip(("done", "virt", "cur", "gdone"), row))
+                for i, row in zip(harts, words.cpu().tolist())}
+
+    @staticmethod
+    def _check_guest_op(w: Dict[str, int], hart: int, guest: int,
+                        verb: str) -> None:
+        """Shared precondition: the hart is paused while executing guest
+        code and slot ``guest`` is not currently scheduled.  Paused in M
+        firmware or inside the HS scheduler, a context switch may be in
+        flight (target chosen but ``SCHED_CUR`` not yet updated), so
+        neither ``SCHED_CUR`` nor the context slots are authoritative."""
+        if w["done"]:
+            raise MigrationError(f"hart {hart} has already exited")
+        if not w["virt"]:
+            raise MigrationError(
+                f"hart {hart} is not executing guest code (V=0 — "
+                f"possibly mid context-switch); run a little longer "
+                f"and retry")
+        if w["cur"] == guest:
+            raise MigrationError(
+                f"guest {guest} is currently scheduled on hart {hart}; "
+                f"{verb} only descheduled guests (run a little longer "
+                f"and retry)")
+
+    def _preemptive_spec(self, hart: int) -> HartSpec:
+        if not (0 <= hart < len(self._specs)):
+            raise MigrationError(f"hart {hart} out of range")
+        spec = self._specs[hart]
+        if not spec.preemptive:
+            raise MigrationError(
+                f"hart {hart} ({spec.label}) is not a preemptive "
+                f"multi-guest slot")
+        return spec
+
+    def _set_mem(self, mem: torch.Tensor) -> None:
+        self._harts = self._harts.replace(mem=mem)
+        self._generation += 1          # invalidate handed-out views
+
+    def migrate_guest(self, src: int, dst: int, guest: int = 0) -> "Fleet":
+        """Move a descheduled guest VM from hart ``src`` to hart ``dst``.
+
+        Copies guest slot ``guest``'s migratable state — saved context
+        (GPRs, sepc, the VS CSR bank, the frozen virtual clock), private
+        G-stage table block, 64 KiB window, result mailbox and scheduler
+        info block (``programs.guest_regions``) — to the same addresses on
+        the destination, as device-side slice copies.  The destination's
+        scheduler picks the guest up at its next switch and resumes it
+        mid-flight.  On the source the slot is marked done with a zeroed
+        mailbox, and both specs are updated so ``report()`` checks the
+        guest's golden on its new hart.  The destination slot's own tenant
+        is discarded.
+
+        Preconditions (else :class:`MigrationError`): both slots are
+        preemptive, neither hart has exited, both are paused while
+        executing guest code (V=1), and the guest is live and not
+        currently scheduled on either hart."""
+        if src == dst:
+            raise MigrationError("src and dst must be different harts")
+        s_spec = self._preemptive_spec(src)
+        d_spec = self._preemptive_spec(dst)
+        n = len(s_spec.guests)
+        if not 0 <= guest < n:
+            raise MigrationError(f"guest {guest} out of range for N={n}")
+        if s_spec.guests[guest] is None:
+            raise MigrationError(
+                f"hart {src} guest {guest} was already migrated away")
+        lay = programs.sched_layout(n)
+        words = self._guest_words((src, dst), guest, lay)
+        for i in (src, dst):
+            self._check_guest_op(words[i], i, guest, "migrate")
+        if words[src]["gdone"] != 0:
+            raise MigrationError(
+                f"hart {src} guest {guest} already finished — "
+                f"nothing to migrate")
+        mem = self._harts.mem.clone()
+        for base, size in programs.guest_regions(lay, guest):
+            w0, w1 = base >> 3, (base + size) >> 3
+            mem[dst, w0:w1] = mem[src, w0:w1]
+        # source: the slot is gone — mark it done and zero its mailbox so
+        # the hart's combined exit checksum covers only remaining guests
+        mem[src, _gi_done_word(lay, guest)] = 1
+        mem[src, (lay.guest_res + 8 * guest) >> 3] = 0
+        self._set_mem(mem)
+
+        moved = s_spec.guests[guest]
+        self._respec_slot(src, tuple(None if k == guest else w
+                                     for k, w in enumerate(s_spec.guests)))
+        self._respec_slot(dst, tuple(moved if k == guest else w
+                                     for k, w in enumerate(d_spec.guests)))
+        return self
+
+    def _respec_slot(self, i: int, new_guests: tuple,
+                     hole: str = "moved") -> None:
+        """Rewrite slot i's spec after a guest-level mutation; ``hole``
+        names empty (None) guest entries in the label."""
+        spec = self._specs[i]
+        name = "+".join(w.name if w is not None else hole
+                        for w in new_guests)
+        self._specs[i] = dataclasses.replace(
+            spec, guests=new_guests, workload=new_guests[0], name=name)
+
+    def park_guest(self, hart: int, guest: int, path) -> str:
+        """Evict a descheduled guest VM to a per-guest checkpoint file.
+
+        The regions :meth:`migrate_guest` moves are copied to the host in
+        one copy and written with ``checkpoint.save_guest`` (a migration
+        whose destination is a file); the slot is then marked done with a
+        zeroed mailbox and its spec entry cleared.  :meth:`resume_guest`
+        later splices the file into slot ``guest`` of any same-layout
+        hart.  Preconditions as :meth:`migrate_guest`."""
+        from repro_torch.core.hext import checkpoint
+        spec = self._preemptive_spec(hart)
+        n = len(spec.guests)
+        if not 0 <= guest < n:
+            raise MigrationError(f"guest {guest} out of range for N={n}")
+        if spec.guests[guest] is None:
+            raise MigrationError(f"hart {hart} guest {guest} is an "
+                                 f"empty slot — nothing to park")
+        lay = programs.sched_layout(n)
+        words = self._guest_words((hart,), guest, lay)[hart]
+        self._check_guest_op(words, hart, guest, "park")
+        if words["gdone"] != 0:
+            raise MigrationError(
+                f"hart {hart} guest {guest} already finished — "
+                f"nothing to park")
+        spans = [(base >> 3, (base + size) >> 3)
+                 for base, size in programs.guest_regions(lay, guest)]
+        host = torch.cat([self._harts.mem[hart, w0:w1]
+                          for w0, w1 in spans]).cpu().numpy()
+        cuts = np.cumsum([w1 - w0 for w0, w1 in spans])[:-1]
+        # the saved ginfo block carries done=0, so the region splice alone
+        # revives the guest on resume
+        regions = {name: part.view(np.uint64) for name, part in
+                   zip(checkpoint.GUEST_REGIONS, np.split(host, cuts))}
+        out = checkpoint.save_guest(
+            str(path), regions, n=n, slot=guest, timeslice=spec.timeslice,
+            workload=getattr(spec.guests[guest], "name", None))
+        mem = self._harts.mem.clone()
+        mem[hart, _gi_done_word(lay, guest)] = 1
+        mem[hart, (lay.guest_res + 8 * guest) >> 3] = 0
+        self._set_mem(mem)
+        self._respec_slot(hart, tuple(None if k == guest else w
+                                      for k, w in enumerate(spec.guests)),
+                          hole="parked")
+        return out
+
+    def resume_guest(self, hart: int, path,
+                     workload: Optional[Any] = None) -> "Fleet":
+        """Splice a parked guest checkpoint into its slot on hart ``hart``
+        (one host→device copy of its regions).  The restored info block
+        carries ``done=0``, so the scheduler picks the guest up at its next
+        timer tick and resumes it mid-flight.
+
+        The slot must not be live: a ``None`` entry or a finished tenant
+        (whose mailbox is then overwritten).  ``workload`` sets the spec
+        entry for golden checks; by default the stored name is resolved
+        through the standard registry.  Preconditions (else
+        :class:`MigrationError`): preemptive slot with the checkpoint's
+        layout (same N), hart not exited, paused in guest code (V=1),
+        slot not live."""
+        from repro_torch.core.hext import checkpoint
+        regions, meta = checkpoint.load_guest(str(path))
+        spec = self._preemptive_spec(hart)
+        n = len(spec.guests)
+        if n != int(meta["n"]):
+            raise MigrationError(
+                f"guest checkpoint has an N={meta['n']} layout but hart "
+                f"{hart} runs N={n}")
+        guest = int(meta["slot"])
+        if workload is None and meta.get("workload"):
+            workload = checkpoint.workload_registry().get(meta["workload"])
+        if workload is None:
+            raise MigrationError(
+                f"cannot resolve workload {meta.get('workload')!r} from "
+                f"the guest checkpoint — pass workload= explicitly")
+        lay = programs.sched_layout(n)
+        words = self._guest_words((hart,), guest, lay)[hart]
+        self._check_guest_op(words, hart, guest, "resume")
+        if spec.guests[guest] is not None and words["gdone"] == 0:
+            raise MigrationError(
+                f"hart {hart} guest slot {guest} is still live — "
+                f"park or migrate it first")
+        spans = [(base >> 3, (base + size) >> 3)
+                 for base, size in programs.guest_regions(lay, guest)]
+        dev = torch.as_tensor(np.concatenate(
+            [regions[name].view(np.int64)
+             for name in checkpoint.GUEST_REGIONS]),
+            device=self._harts.device)
+        mem = self._harts.mem.clone()
+        at = 0
+        for w0, w1 in spans:
+            mem[hart, w0:w1] = dev[at:at + w1 - w0]
+            at += w1 - w0
+        self._set_mem(mem)
+        self._respec_slot(hart, tuple(workload if k == guest else w
+                                      for k, w in enumerate(spec.guests)))
+        return self
+
+    def replace_hart(self, i: int, state: HartState,
+                     spec: Optional[HartSpec] = None) -> "Fleet":
+        """Splice one hart's full state (and optionally its spec) into the
+        batch — the control plane's provision/recover primitive: lanes
+        keep the fleet's shapes (batch, mem_words), dtypes and device, so
+        a graph engine's captured graph is reused.  ``state`` is a batch
+        of one with the fleet's per-hart shapes; a state on another device
+        is moved onto the fleet's."""
+        if not (0 <= i < len(self._specs)):
+            raise ValueError(f"hart {i} out of range")
+        if state.batch != 1:
+            raise ValueError(f"hart {i}: the state holds {state.batch} "
+                             f"harts; replace_hart takes a batch of one")
+        want = tuple(self._harts.mem.shape[1:])
+        got = tuple(state.mem.shape[1:])
+        if got != want:
+            raise ValueError(
+                f"hart {i}: state.mem shape {got} != fleet per-hart shape "
+                f"{want} (lanes must keep the compiled shape)")
+        dev = self._harts.device
+
+        def splice(b, s):
+            if isinstance(b, dict):
+                return {k: splice(b[k], s[k]) for k in b}
+            out = b.clone()
+            out[i] = s[0].to(device=dev, dtype=b.dtype)
+            return out
+
+        self._harts = HartState.from_raw(
+            splice(self._harts.to_raw(), state.to_raw()))
+        if spec is not None:
+            self._specs[i] = spec
+        self._generation += 1
+        return self
 
     # -- introspection --------------------------------------------------------
     @property

@@ -6,7 +6,9 @@ same seeded inputs (integer semantics of shifts, wrap-around and division
 on CUDA), the CUDA ``pagewalk`` and ``paged_attention`` kernels against
 their plain versions, and the hext graph engine (device gates, one CUDA
 graph) against the eager engine, with a CPU snapshot restored onto the
-card.
+card; and the fleet operations on the graph engine (a 32-case torture
+corpus against the oracle, a migration, ``replace_hart`` with no new
+graph, and the service's long-workload park/resume and N=3 shed cases).
 This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -727,3 +729,112 @@ def test_restore_onto_card_runs_on_bit_identical(cuda, tmp_path):
     card.run(256, chunk=256)
     for i in range(4):
         assert E.diff_states(card.harts, cpu.harts, i, i) == [], i
+
+
+# ---------------------------------------------------------------------------
+# fleet operations on the card: torture, guest operations, the service
+# ---------------------------------------------------------------------------
+
+def test_torture_corpus_on_graph_engine_matches_oracle(cuda):
+    """32 scenarios of the fixed-seed corpus (28 fuzz, 4 sched), each
+    family one graph on the card, against the oracle from the same boot."""
+    from repro_torch.core.hext import torture
+    eng = E.GraphEngine()
+    rep = torture.run_corpus(torture.DEFAULT_SEED, 32, device=cuda,
+                             engine=eng)
+    assert rep["failures"] == [], [f["repro"] for f in rep["failures"]]
+    assert rep["families"]["fuzz"]["engine"] == "graph"
+    assert eng.n_graphs == 2
+
+
+def _wl(name):
+    return next(w for w in programs.WORKLOADS if w.name == name)
+
+
+def _retry(fleet, op):
+    from repro_torch.core.hext.sim import MigrationError
+    for _ in range(12):
+        try:
+            return op()
+        except MigrationError:
+            fleet.run(300, chunk=300)
+    pytest.fail("the guest never became movable")
+
+
+def test_migrate_guest_on_card_hits_goldens(cuda):
+    sha, crc, ss, fft = (_wl(n) for n in ("sha", "crc32", "stringsearch",
+                                          "fft"))
+    fleet = Fleet.boot([(sha, crc), (ss, fft)], guests_per_hart=2,
+                       timeslice=300, device=cuda)
+    assert fleet.engine.name == "graph"
+    fleet.run(1000, chunk=500)
+    _retry(fleet, lambda: fleet.migrate_guest(0, 1, guest=1))
+    assert fleet.harts.device.type == "cuda"
+    fleet.run(30000, chunk=1024)
+    rep = fleet.report()
+    assert rep["sha+moved/2guest-preempt"]["ok_guests"] == [True, None]
+    dst = rep["stringsearch+crc32/2guest-preempt"]
+    assert dst["ok"] and dst["ok_guests"] == [True, True]
+
+
+def test_replace_hart_on_card_captures_no_new_graph(cuda):
+    from repro_torch.core.hext.sim import HartSpec, HartState
+    sha, fft = _wl("sha"), _wl("fft")
+    fleet = Fleet.boot([sha, sha], guest=True, device=cuda)
+    fleet.run(512, chunk=512)
+    eng, graphs = fleet.engine, fleet.engine.n_graphs
+    assert graphs == 1
+    # a state booted on the CPU is moved onto the fleet's card
+    fleet.replace_hart(1, HartState.boot(fft, device="cpu"),
+                       HartSpec(fft, False, "fft"))
+    assert fleet.harts.device.type == "cuda"
+    fleet.run(30000, chunk=1024)
+    assert fleet.engine is eng and eng.n_graphs == graphs
+    rep = fleet.report()
+    assert rep["sha/guest"]["ok"] and rep["fft/native"]["ok"]
+
+
+def _svc(cuda, tmp_path, **kw):
+    from repro_torch.core.hext.service import FleetService
+    kw.setdefault("n_harts", 2)
+    kw.setdefault("guests_per_hart", 2)
+    return FleetService(timeslice=300, slice_ticks=2048, chunk=512,
+                        snapshot_dir=str(tmp_path / "snaps"), device=cuda,
+                        **kw)
+
+
+def test_service_evict_park_resume_roundtrip_on_card(cuda, tmp_path):
+    """The reference's long-workload case: queue pressure parks the
+    youngest guest; it resumes into a reserved slot at its golden."""
+    from repro_torch.core.hext.policies import BinPackPolicy
+    svc = _svc(cuda, tmp_path, policy=BinPackPolicy(partial_after=1))
+    for t, name in enumerate(["qsort", "bitcount", "dijkstra", "susan"]):
+        svc.submit(_wl(name), tenant=t)
+    svc.step()
+    late = svc.submit(_wl("sha"), tenant=4)
+    assert svc.drain(400)
+    assert svc.stats["parks"] >= 1 and svc.stats["resumes"] >= 1
+    assert svc.stats["completed"] == 5 and svc.stats["failed"] == 0
+    parked = [j for j in svc.jobs() if any("parked" in e for e in j.events)]
+    assert parked and all(j.ok for j in parked)
+    assert any("resumed" in e for j in parked for e in j.events)
+    assert svc.job(late).ok
+    assert svc._pod.engine.n_graphs == 1
+
+
+def test_service_shed_migration_preserves_goldens_on_card(cuda, tmp_path):
+    """The reference's N=3 case: a hot lane sheds a guest to the cool
+    lane by live migration; every checksum still matches."""
+    from repro_torch.core.hext.policies import BinPackPolicy
+    svc = _svc(cuda, tmp_path, guests_per_hart=3,
+               policy=BinPackPolicy(partial_after=1, shed_margin=2))
+    for t, name in enumerate(["susan", "dijkstra", "bitcount"]):
+        svc.submit(_wl(name), tenant=t)
+    svc.step()
+    svc.submit(_wl("qsort"), tenant=3)
+    assert svc.drain(400)
+    assert svc.stats["migrations"] >= 1
+    assert svc.stats["completed"] == 4 and svc.stats["failed"] == 0
+    moved = [j for j in svc.jobs() if any("migrated" in e for e in j.events)]
+    assert moved and all(j.ok for j in moved)
+    assert svc._pod.engine.n_graphs == 1

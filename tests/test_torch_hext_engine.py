@@ -140,7 +140,9 @@ def test_engine_registry_resolution():
     assert engine.resolve(inst) is inst              # instances pass through
     assert isinstance(inst, engine.Engine)
     assert isinstance(engine.GraphEngine(), engine.Engine)
-    for name in ("warp-drive", "oracle", "sharded", "jit"):
+    assert engine.resolve("oracle").name == "oracle"
+    assert engine.resolve("sharded").name == "sharded"
+    for name in ("warp-drive", "jit"):
         with pytest.raises(ValueError, match="unknown engine"):
             engine.resolve(name)
     with pytest.raises(TypeError):

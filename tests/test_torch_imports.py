@@ -24,6 +24,8 @@ def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in FILES}
     for mod in ("device.py", "core/hext/machine.py", "core/hext/sim.py",
                 "core/hext/engine.py", "core/hext/checkpoint.py",
+                "core/hext/oracle.py", "core/hext/torture.py",
+                "core/hext/policies.py", "core/hext/service.py",
                 "kernels/pagewalk/kernel.py", "indexing.py",
                 "core/vmem/page_table.py", "core/vmem/allocator.py",
                 "core/vmem/kvcache.py", "kernels/paged_attention/ref.py",

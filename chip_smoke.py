@@ -111,7 +111,34 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  16 steps and the device idle share of a decode step;
 7. kernels     — one JSON line listing each ported kernel (pagewalk's
                  times are those of the path's call, translate_block's
-                 walk).
+                 walk);
+8. moe         — (run after phase 6, before phase 4) the MoE serving path:
+                 the flash_attention kernel at Qwen3-30B-A3B's causal
+                 prefill shape (B 1 and 4, S 8192, H 32, KV 4, hd 128)
+                 and Granite-MoE-3B-A800M's (B 4, S 4096, H 24, KV 8, hd
+                 64) against its plain version, timed beside its bound,
+                 SDPA with ``is_causal=True`` and the plain version; then
+                 each model at full width and depth from seeded bf16
+                 weights built on the card (Qwen3: 48 layers, 128
+                 experts, ~61 GB; Granite: 32 layers, 40 experts padded to
+                 48): ``prefill`` of 4 prompts (8192 / 4096 tokens, the
+                 last row one token repeated so capacity overflows) with
+                 every kernel count set to 0 just before and read just
+                 after (one flash launch a layer), then greedy
+                 ``decode_step``s (16 / 8); the dropped assignments of
+                 each row (the repeated row's > 0) and the tokens of the
+                 padded experts (0) counted on the card; peak memory, the
+                 weight init, prefill wall, decode ms a step beside its
+                 byte bound and the device idle share of a decode step;
+                 on Qwen3's layers 0 and 47 (1,024 tokens of the repeated
+                 row and of a random row) the card's routing against the
+                 CPU's on the card's logits (bit-equal), the card's output
+                 against the CPU's on that routing, two card runs
+                 bit-equal and a capacity C - 1 control; at B = 1 the
+                 kernel against its plain version on every layer's q, k,
+                 v (control: each query's own key dropped) and decode
+                 against a fresh prefill (with its control), at a
+                 capacity factor where nothing drops (ROADMAP R7).
 
 ``--hext-matrix`` runs only the hext columns that phase 4 leaves out (the
 long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
@@ -237,6 +264,14 @@ FLASH_FP32_TOL = 2e-5
 # position too far) must exceed its limit likewise.
 ROUTE_TOL = 2e-2
 DECODE_TOL = 2.5e-2
+
+# moe: Qwen3-30B-A3B (src/repro/configs/qwen3_moe_30b_a3b.py) and
+# Granite-MoE-3B-A800M (src/repro/configs/granite_moe_3b_a800m.py) at full
+# width and depth, seeded bf16 weights: (arch, B, S, decode steps)
+MOE_RUNS = (("qwen3_moe_30b_a3b", 4, 8192, 16),
+            ("granite_moe_3b_a800m", 4, 4096, 8))
+MOE_REPEATED_ROW = 3               # one token repeated: capacity overflows
+MOE_ROUTE_TOKENS = 1024            # tokens of each routing check
 
 
 def phase(name: str, **kv) -> None:
@@ -1711,17 +1746,22 @@ def flash_full_width(torch, dev, gen, cfg, FAK, ref, flush) -> dict:
 
 
 @contextlib.contextmanager
+def patched(module, name, fn):
+    """Inside the block, ``module.name`` is ``fn``."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
 def prefill_attention(fn):
     """Inside the block, ``attn_prefill`` attends through ``fn(q, k, v,
     scale, window)`` in place of ``ops.flash_attention``."""
     from repro_torch.models import attention as AT
 
-    saved = AT.flash_attention
-    AT.flash_attention = fn
-    try:
-        yield
-    finally:
-        AT.flash_attention = saved
+    return patched(AT, "flash_attention", fn)
 
 
 def teed_flash(torch, FAK, ref):
@@ -1729,17 +1769,30 @@ def teed_flash(torch, FAK, ref):
     its output against the plain version (one KV head at a time) on the
     same q, k, v, and passes the kernel's output on; ``.errs`` keeps each
     call's (max abs, max row relative, [control's max row relative])
-    error.  The control is the kernel with a window one key short, which
-    the row tolerance must see."""
+    error.  The control is the kernel one key short, which the row
+    tolerance must see: with a window, the window one key short; without
+    one, each query's own key dropped (``own_key_dropped``)."""
     def attend(q, k, v, scale, window):
         got = FAK.flash_attention_kernel(q, k, v, scale, window)
-        short = FAK.flash_attention_kernel(q, k, v, scale, window - 1)
+        short = (FAK.flash_attention_kernel(q, k, v, scale, window - 1)
+                 if window else own_key_dropped(FAK, got, q, k, v, scale))
         attend.errs.append(check_by_kv_head(
             torch, ref, got, q, k, v, scale, window,
             f"flash_attention, layer {len(attend.errs)}", controls=(short,)))
         return got
     attend.errs = []
     return attend
+
+
+def own_key_dropped(FAK, got, q, k, v, scale):
+    """Causal attention with each query's own key dropped: query s > 0
+    sees keys 0..s-1 (the kernel on q[:, 1:] against k, v[:, :-1]; RoPE
+    is already in q and k), query 0 keeps ``got``'s row."""
+    short = got.clone()
+    short[:, 1:] = FAK.flash_attention_kernel(
+        q[:, 1:].contiguous(), k[:, :-1].contiguous(),
+        v[:, :-1].contiguous(), scale, 0)
+    return short
 
 
 def core_by_kv_head(torch, AT):
@@ -1770,11 +1823,12 @@ def busy_us(kernels) -> float:
     return busy + cur_e - cur_s
 
 
-def decode_busy(torch, step):
+def device_busy(torch, step, top_n=6):
     """(device busy ms, profiled step ms, top kernels) of one ``step()``
     under ``torch.profiler``: the union of its kernels' device intervals,
     the step's host wall (launch to synchronise) under the profiler, and
-    the six kernels with the most device time as (name, launches, µs).
+    the ``top_n`` kernels with the most device time as (name, launches,
+    µs).
     The busy time is None if the trace holds no device kernel."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1792,7 +1846,7 @@ def decode_busy(torch, step):
     for k in kernels:
         n, us = per_name.get(k.name, (0, 0.0))
         per_name[k.name] = (n + 1, us + k.time_range.end - k.time_range.start)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:top_n]
     return (busy_us(kernels) / 1e3, wall_us / 1e3,
             [(name[:60], n, round(us, 1)) for name, (n, us) in top])
 
@@ -1802,12 +1856,13 @@ def rel_rows(torch, got, want) -> float:
     return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
 
 
-def serve(torch, dev, cfg, lm, TF, prompts, counts):
-    """The path: one prefill of the prompts, then LM_STEPS greedy decode
+def serve(torch, dev, cfg, lm, TF, prompts, counts, steps=LM_STEPS):
+    """The path: one prefill of the prompts, then ``steps`` greedy decode
     steps; every kernel count is set to 0 just before the prefill and the
-    launches of the prefill and of the decode steps are read after each."""
+    launches of the prefill and of the decode steps are read after each.
+    The cache holds S + steps positions (a window slab: the window)."""
     B, S = prompts.shape
-    cache = TF.init_cache(cfg, B, S, device=dev)
+    cache = TF.init_cache(cfg, B, S + steps, device=dev)
     torch.cuda.synchronize()
     for c in counts:
         c.launches = 0
@@ -1818,7 +1873,7 @@ def serve(torch, dev, cfg, lm, TF, prompts, counts):
     at_prefill = [c.launches for c in counts]
     tokens, step_ms = [], []
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
-    for _ in range(LM_STEPS):
+    for _ in range(steps):
         nxt = logits.float().argmax(dim=-1)
         tokens.append(nxt)
         t0 = time.perf_counter()
@@ -1826,11 +1881,89 @@ def serve(torch, dev, cfg, lm, TF, prompts, counts):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         pos = pos + 1
-        if logits.shape != (B, cfg.vocab_size) or \
+        if logits.shape != (B, cfg.padded_vocab) or \
                 not bool(torch.isfinite(logits).all()):
             raise RuntimeError("decode_step: bad logits")
     return (prefill_s, at_prefill, [c.launches for c in counts],
             torch.stack(tokens, dim=1), step_ms, cache, pos, logits)
+
+
+def decode_check(torch, dev, cfg, lm, TF, one, name, attend=None,
+                 held=None) -> float:
+    """Decode at position S (``one`` is [1, S+1] tokens) on the cache of a
+    prefill of the first S, against a fresh (S+1)-token prefill, by logit
+    row norm within DECODE_TOL; its control, the same token decoded one
+    position too far on the prefill's own cache, must exceed it.  The
+    caches hold S + 2 positions (a window slab: the window).  ``attend``,
+    if given, attends the first prefill (``prefill_attention``).
+
+    An MoE model passes ``held``, a ``HeldDecode``: the fresh prefill
+    records its last token's attention outputs and routing (the check
+    stands only if it dropped none of its assignments, since decode never
+    drops), both decodes take the prefill's routing of each layer, and
+    decode on its own routing is printed beside them.  Its gate's control
+    is the attention output of layer 0, where both sides have the same
+    input: decode's within BF16_ROW_REL_TOL of the prefill's last row by
+    row norm, the control's above it (the logits' control is printed:
+    q/k-normed attention over 8192 keys is diffuse, and one position
+    moves the logits by about the rounding).  Returns the error."""
+    S = one.shape[1] - 1
+    with held.record() if held else contextlib.nullcontext():
+        fresh, _ = TF.prefill(lm, cfg, one,
+                              TF.init_cache(cfg, 1, S + 2, device=dev))
+    cache = TF.init_cache(cfg, 1, S + 2, device=dev)
+    with prefill_attention(attend) if attend else contextlib.nullcontext():
+        _, cache = TF.prefill(lm, cfg, one[:, :S], cache)
+    saved = [{n: x.clone() for n, x in layer.items()} for layer in cache]
+    at = torch.full((1,), S, dtype=torch.int32, device=dev)
+    with held.replay() if held else contextlib.nullcontext():
+        dec, _ = TF.decode_step(lm, cfg, one[:, S], at, cache)
+    if held:
+        held_line, attn = held.summary(), held.attn_errs()
+    # control: the same token decoded one position too far, on the
+    # prefill's own cache
+    with held.replay() if held else contextlib.nullcontext():
+        off, _ = TF.decode_step(lm, cfg, one[:, S], at + 1, saved)
+    # the vocabulary's padding columns (-1e30) are left out
+    V = cfg.vocab_size
+    if held:
+        attn_ctrl = held.attn_errs()
+        # decode on its own routing (it rewrites the row at S first)
+        own, _ = TF.decode_step(lm, cfg, one[:, S], at, cache)
+        own_err = rel_rows(torch, own[..., :V], fresh[..., :V])
+        phase(name, **held_line,
+              own_routing_logits_row_rel_err=f"{own_err:.3e}")
+    del cache, saved
+    dec, off, fresh = (x[..., :V] for x in (dec, off, fresh))
+    dvp = rel_rows(torch, dec, fresh)
+    ctrl = rel_rows(torch, off, fresh)
+    phase(name, check=f"decode at {S} vs a fresh {S + 1}-token "
+          f"prefill, B=1", logits_row_rel_err=f"{dvp:.3e}", tol=DECODE_TOL,
+          top1_agree=bool((dec.float().argmax(-1) ==
+                           fresh.float().argmax(-1)).all()))
+    phase(name, decode_control=f"decode at {S + 1} vs the fresh "
+          f"prefill", logits_row_rel_err=f"{ctrl:.3e}",
+          must_exceed=DECODE_TOL if not held else "no (printed)")
+    if not dvp <= DECODE_TOL:
+        raise RuntimeError(f"decode differs from prefill: {dvp:.3e} > "
+                           f"{DECODE_TOL}")
+    if held:
+        phase(name, check="decode's attention output vs the prefill's last "
+              "row, layer 0", row_rel_err=f"{attn[0]:.3e}",
+              tol=BF16_ROW_REL_TOL, control_row_rel_err=f"{attn_ctrl[0]:.3e}",
+              must_exceed=BF16_ROW_REL_TOL,
+              deeper_layers_max=f"{max(attn[1:], default=0.0):.3e}",
+              deeper_layers_control_min=f"{min(attn_ctrl[1:], default=0):.3e}")
+        if not attn[0] <= BF16_ROW_REL_TOL:
+            raise RuntimeError(f"decode's attention differs from the "
+                               f"prefill's at layer 0: {attn[0]:.3e}")
+        if not attn_ctrl[0] > BF16_ROW_REL_TOL:
+            raise RuntimeError(f"the attention check cannot see a position "
+                               f"off by one: {attn_ctrl[0]:.3e}")
+    elif not ctrl > DECODE_TOL:
+        raise RuntimeError(f"the decode check cannot see a position off by "
+                           f"one: {ctrl:.3e} <= {DECODE_TOL}")
+    return dvp
 
 
 def model_phase(torch, np, dev) -> dict:
@@ -1892,7 +2025,7 @@ def model_phase(torch, np, dev) -> dict:
         torch, dev, cfg, lm, TF, prompts[:, :LM_S], counts)
     decode_ms = sum(step2_ms) / len(step2_ms)
     nxt = tokens2[:, -1]
-    busy_ms, prof_ms, top = decode_busy(
+    busy_ms, prof_ms, top = device_busy(
         torch, lambda: TF.decode_step(lm, cfg, nxt, pos, cache))
     # the kernel's share of the prefill, from its time at the path's shape
     flash_share = cfg.n_layers * kernel["path_ms"] / (prefill2_s * 1e3)
@@ -1974,35 +2107,8 @@ def model_phase(torch, np, dev) -> dict:
         raise RuntimeError(f"prefill through the kernel differs from the "
                            f"plain route: {route:.3e} > {ROUTE_TOL}")
 
-    cache = TF.init_cache(cfg, 1, LM_S, device=dev)
-    _, cache = TF.prefill(lm, cfg, one[:, :LM_S], cache)
-    saved = [{n: x.clone() for n, x in layer.items()} for layer in cache]
-    dec, _ = TF.decode_step(lm, cfg, one[:, LM_S],
-                            torch.full((1,), LM_S, dtype=torch.int32,
-                                       device=dev), cache)
-    # control: the same token decoded one position too far, on the
-    # prefill's own cache
-    off, _ = TF.decode_step(lm, cfg, one[:, LM_S],
-                            torch.full((1,), LM_S + 1, dtype=torch.int32,
-                                       device=dev), saved)
-    fresh, _ = TF.prefill(lm, cfg, one,
-                          TF.init_cache(cfg, 1, LM_S, device=dev))
-    dvp = rel_rows(torch, dec, fresh)
-    ctrl = rel_rows(torch, off, fresh)
-    phase("model", check=f"decode at {LM_S} vs a fresh {LM_S + 1}-token "
-          f"prefill, B=1", logits_row_rel_err=f"{dvp:.3e}", tol=DECODE_TOL,
-          top1_agree=bool((dec.float().argmax(-1) ==
-                           fresh.float().argmax(-1)).all()))
-    phase("model", decode_control=f"decode at {LM_S + 1} vs the fresh "
-          f"prefill", logits_row_rel_err=f"{ctrl:.3e}",
-          must_exceed=DECODE_TOL)
-    if not dvp <= DECODE_TOL:
-        raise RuntimeError(f"decode differs from prefill: {dvp:.3e} > "
-                           f"{DECODE_TOL}")
-    if not ctrl > DECODE_TOL:
-        raise RuntimeError(f"the decode check cannot see a position off by "
-                           f"one: {ctrl:.3e} <= {DECODE_TOL}")
-    del lm, cache, saved
+    decode_check(torch, dev, cfg, lm, TF, one, "model")
+    del lm
 
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2012,6 +2118,452 @@ def model_phase(torch, np, dev) -> dict:
             "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
             "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
             "library_ms": kernel["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# moe: the MoE serving path (Qwen3-30B-A3B, Granite-MoE-3B-A800M)
+# ---------------------------------------------------------------------------
+
+class DispatchCounts:
+    """Inside ``with``, a tee of ``moe.dispatch`` (the capacity ranks of
+    every MoE call) that counts on the card: dropped assignments of each
+    group (a batch row) summed over the calls, the dropped assignments of
+    each group's last token, and the kept assignments of each expert."""
+
+    def __init__(self, torch, MOE, E, dev):
+        self.MOE, self.saved = MOE, MOE.dispatch
+        self.per_expert = torch.zeros(E, dtype=torch.long, device=dev)
+        self.drops = self.last_drops = 0
+
+    def __call__(self, experts, E, C):
+        rank, keep = self.saved(experts, E, C)
+        drop = (~keep).long()
+        self.drops = self.drops + drop.sum(-1)
+        self.last_drops = self.last_drops + drop[:, -experts.shape[-1]:] \
+            .sum(-1)
+        self.per_expert.scatter_add_(0, experts.reshape(-1),
+                                     keep.reshape(-1).long())
+        return rank, keep
+
+    def __enter__(self):
+        self.MOE.dispatch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.dispatch = self.saved
+
+
+class HeldDecode:
+    """Decode against prefill on an MoE model.  Top-k routing is a step
+    function of the block's normed input h2, and decode's h2 differs from
+    the prefill's by rounding (its attention keeps P in bf16, the flash
+    kernel in fp32), so a near-tied pick can flip and the difference
+    cascades through the later layers.  ``record()`` wraps the fresh
+    prefill: each layer keeps its last token's attention output, h2 and
+    routing, and the dropped assignments of that token are counted (they
+    must be 0: decode never drops).  ``replay()`` wraps a decode step:
+    its MoE call of layer i takes the prefill's routing of layer i in
+    place of its own (counting the layers where its own h2 picks another
+    expert set, and the largest difference of its h2 from the
+    prefill's), and its attention outputs are kept.  (Routing on
+    identical inputs is held bit for bit by ``moe_route_checks``.)"""
+
+    def __init__(self, torch, MOE, E, dev):
+        from repro_torch.models import attention as AT
+
+        self.torch, self.MOE, self.AT = torch, MOE, AT
+        self.counter = DispatchCounts(torch, MOE, E, dev)
+        self.last, self.attn = [], []
+
+    @contextlib.contextmanager
+    def record(self):
+        route, attend = self.MOE._route, self.AT.attn_prefill
+
+        def keep(p, cfg, x):
+            gates, experts, aux = route(p, cfg, x)
+            self.last.append((x[:, -1:].clone(), gates[:, -1:].clone(),
+                              experts[:, -1:].clone()))
+            return gates, experts, aux
+
+        def keep_attn(p, cfg, x, positions):
+            y, kv = attend(p, cfg, x, positions)
+            self.attn.append(y[:, -1:].clone())
+            return y, kv
+
+        with self.counter, patched(self.MOE, "_route", keep), \
+                patched(self.AT, "attn_prefill", keep_attn):
+            yield
+        last = int(self.counter.last_drops.sum())
+        if last:
+            raise RuntimeError(f"the decode check cannot stand: the fresh "
+                               f"prefill dropped {last} assignments of its "
+                               f"last token, which decode never drops")
+
+    @contextlib.contextmanager
+    def replay(self):
+        torch, route, calls = self.torch, self.MOE._route, iter(self.last)
+        attend = self.AT.attn_decode
+        self.flips, self.h2_rel, self.attn_out = [], 0.0, []
+
+        def as_prefill(p, cfg, x):
+            xp, gp, ep = next(calls)
+            _, own, aux = route(p, cfg, x)
+            self.flips.append(not torch.equal(own.sort(-1).values,
+                                              ep.sort(-1).values))
+            self.h2_rel = max(self.h2_rel, float(
+                (x.float() - xp.float()).norm() / xp.float().norm()))
+            return gp, ep, aux
+
+        def keep_attn(*args):
+            y, ck, cv = attend(*args)
+            self.attn_out.append(y)
+            return y, ck, cv
+
+        with patched(self.MOE, "_route", as_prefill), \
+                patched(self.AT, "attn_decode", keep_attn):
+            yield
+
+    def attn_errs(self) -> list:
+        """Row relative error of the last replay's attention output of
+        each layer against the prefill's last row."""
+        return [rel_rows(self.torch, got, want)
+                for got, want in zip(self.attn_out, self.attn, strict=True)]
+
+    def summary(self) -> dict:
+        return dict(fresh_prefill_last_token_dropped_assignments=0,
+                    decode_takes_prefill_routing_layers=len(self.flips),
+                    own_h2_other_expert_set_layers=sum(self.flips),
+                    max_h2_row_rel_diff=f"{self.h2_rel:.3e}")
+
+
+def kept_inputs(MOE, layers, n):
+    """A tee of ``moe.apply_moe`` for ``patched``: the first ``n`` tokens of
+    every row of the input (the block's normed h2) of the calls whose
+    index is in ``layers`` (the layers of one forward), in ``.kept``."""
+    def tee(p, cfg, x, n_groups=0):
+        if tee.calls in layers:
+            tee.kept[tee.calls] = x[:, :n].clone()
+        tee.calls += 1
+        return tee.apply(p, cfg, x, n_groups)
+    tee.apply, tee.calls, tee.kept = MOE.apply_moe, 0, {}
+    return tee
+
+
+def moe_row_err(torch, got, want) -> float:
+    """Max over token rows of ||got - want|| / ||want||; a row that is zero
+    in ``want`` (every assignment of its token dropped) counts 0 if it is
+    zero in ``got`` too, else inf."""
+    g, w = got.float(), want.float()
+    num, den = (g - w).norm(dim=-1), w.norm(dim=-1)
+    inf = torch.full_like(num, float("inf"))
+    return float(torch.where(den > 0, num / den.clamp_min(1e-30),
+                             torch.where(num > 0, inf, 0 * num)).max())
+
+
+def moe_route_checks(torch, MOE, cfg, lm, kept) -> float:
+    """On each kept layer's h2 (B = 1: the repeated row and a random row,
+    MOE_ROUTE_TOKENS tokens each): the card's routing against the CPU's
+    routing of the card's fp32 logits (experts, gates, ranks, keep set:
+    bit-equal), the card's output against the same function on the CPU on
+    that routing (2e-2 by element, 1e-2 by row), two card runs bit-equal,
+    and, on the repeated row, the control: the card with capacity C - 1,
+    which the row tolerance must see.  Returns the max abs error."""
+    E, k = MOE._padded_experts(cfg), cfg.moe.top_k
+    C = MOE.capacity(cfg, MOE_ROUTE_TOKENS)
+    worst = 0.0
+    for layer, h2 in sorted(kept.items()):
+        p = lm.layers[layer].moe
+        p_cpu = MOE.MoE(cfg, device="cpu")
+        p_cpu.load_state_dict(p.state_dict())
+        for row, name in ((MOE_REPEATED_ROW, "repeated"), (0, "random")):
+            x = h2[row:row + 1]
+            logits = MOE.router_logits(p, cfg, x)
+            gates, experts, _ = MOE.route_logits(cfg, logits, x.dtype)
+            rank, keep = MOE.dispatch(experts, E, C)
+            g0, e0, _ = MOE.route_logits(cfg, logits.cpu(), x.dtype)
+            r0, k0 = MOE.dispatch(e0, E, C)
+            same = [torch.equal(a.cpu(), b) for a, b in
+                    ((experts, e0), (gates, g0), (rank, r0), (keep, k0))]
+            y1, _ = MOE.apply_moe(p, cfg, x)
+            y2, _ = MOE.apply_moe(p, cfg, x)
+            want = MOE._gather_moe(p_cpu, cfg, x.cpu(), g0, e0)
+            what = f"moe layer {layer}, {name} row"
+            if not all(same):
+                raise RuntimeError(f"{what}: the card's routing differs from "
+                                   f"the CPU's on the same logits (experts, "
+                                   f"gates, ranks, keep: {same})")
+            if not torch.equal(y1, y2):
+                raise RuntimeError(f"{what}: two runs on the card differ")
+            err = close(y1.cpu(), want, BF16_TOL, what)
+            rel = moe_row_err(torch, y1.cpu(), want)
+            if not rel <= BF16_ROW_REL_TOL:
+                raise RuntimeError(f"{what}: row relative error {rel:.3e} "
+                                   f"above {BF16_ROW_REL_TOL}")
+            worst = max(worst, err)
+            line = dict(layer=layer, row=name, tokens=MOE_ROUTE_TOKENS,
+                        capacity=C, dropped=int((~k0).sum()),
+                        routing_bit_equal=True, two_runs_bit_equal=True,
+                        max_abs_err=f"{err:.3e}", tol=BF16_TOL,
+                        max_row_rel_err=f"{rel:.3e}",
+                        row_rel_tol=BF16_ROW_REL_TOL)
+            if name == "repeated":
+                if not int((~k0).sum()):
+                    raise RuntimeError(f"{what}: no assignment overflowed")
+                with patched(MOE, "capacity", lambda cfg, T: C - 1):
+                    short, _ = MOE.apply_moe(p, cfg, x)
+                ctrl = moe_row_err(torch, short.cpu(), want)
+                line.update(control="capacity C - 1",
+                            control_row_rel_err=f"{ctrl:.3e}")
+                if not ctrl > BF16_ROW_REL_TOL:
+                    raise RuntimeError(f"{what}: the check cannot see "
+                                       f"capacity C - 1: {ctrl:.3e}")
+            phase("moe", **line)
+        del p_cpu
+    return worst
+
+
+def flash_causal_times(torch, dev, gen, FAK, ref, flush, shape) -> dict:
+    """The kernel at a causal (window 0) prefill shape (B, S, H, KV, hd):
+    held against its plain version one KV head at a time, then timed
+    beside its bound, SDPA with ``is_causal=True`` (no mask tensor; its
+    fused path; K/V heads repeated outside the timed call) and, at B = 1,
+    the plain version."""
+    B, S, H, KV, hd = shape
+    G, scale = H // KV, hd ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = flash_inputs(torch, gen, dev, B, S, H, KV, hd, torch.bfloat16)
+    got = FAK.flash_attention_kernel(q, k, v, scale, 0)
+    err, rel, _ = check_by_kv_head(torch, ref, got, q, k, v, scale, 0,
+                                   f"flash_attention {shape}")
+    iters = 20 if B == 1 else 5
+    k_ms = time_cuda(lambda: FAK.flash_attention_kernel(q, k, v, scale, 0),
+                     torch, iters=iters, warmup=2, flush=flush)
+    bound_ms, bound_by, flops, nbytes = flash_bound(B, S, H, KV, hd, 0, 2)
+    qh, kh, vh = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(G, dim=2),
+                   v.repeat_interleave(G, dim=2)))
+    lib_err = float((sdpa(qh, kh, vh, is_causal=True, scale=scale)
+                     .transpose(1, 2).float() - got.float()).abs().max())
+    lib_ms = time_cuda(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                    scale=scale), torch, iters=iters,
+                       warmup=2, flush=flush)
+    del qh, kh, vh, got
+    out = dict(max_abs_err=err, ms=k_ms, bound_ms=bound_ms, library_ms=lib_ms)
+    line = dict(flash_shape=shape + (0,), vs_plain_max_abs_err=f"{err:.3e}",
+                max_row_rel_err=f"{rel:.3e}", kernel_ms=f"{k_ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, flops=flops,
+                bytes=nbytes, kernel_over_bound=f"{k_ms / bound_ms:.2f}",
+                sdpa_causal_ms=f"{lib_ms:.4f}",
+                sdpa_over_kernel=f"{lib_ms / k_ms:.3f}",
+                sdpa_vs_kernel_max_abs=f"{lib_err:.3e}")
+    if B == 1:
+        plain = plain_by_kv_head(torch, ref)
+        out["plain_ms"] = time_cuda(lambda: plain(q, k, v, scale, 0), torch,
+                                    iters=3, warmup=1, flush=flush)
+        line["plain_by_kv_head_ms"] = f"{out['plain_ms']:.4f}"
+    phase("moe", **line)
+    return out
+
+
+def weight_and_cache_bytes(cfg, lm, B, T) -> int:
+    """Bytes a decode step must move at B rows over T cached positions:
+    every weight once (of an untied embedding table, B rows) and the K/V
+    cache."""
+    n = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if not cfg.tie_embeddings:
+        n -= (lm.embed.shape[0] - B) * lm.embed.shape[1] * \
+            lm.embed.element_size()
+    kv = 2 * cfg.n_layers * B * T * cfg.n_kv_heads * cfg.resolved_head_dim
+    return n + kv * 2
+
+
+def moe_serve(torch, np, dev, arch, B, S, steps) -> float:
+    """One MoE model at full width and depth: seeded bf16 weights built on
+    the card, ``prefill`` of B x S prompts (row MOE_REPEATED_ROW one token
+    repeated) then ``steps`` greedy decode steps, with every kernel count
+    set to 0 just before the prefill and read after (one flash launch a
+    layer); the dropped assignments of each row and the tokens of each
+    expert (padded experts: none) counted on the card; a second serve for
+    the walls, a profiled decode step for the idle share and a profiled
+    prefill for its kernels; routing and
+    output checks (Qwen3), the kernel against its plain version on every
+    layer's q, k, v and decode against prefill at B = 1.  Returns the
+    max abs error of the kernel and MoE checks."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(arch)
+    E = MOE._padded_experts(cfg)
+    t0 = time.perf_counter()
+    lm = TF.init_lm(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    phase("moe", arch=cfg.name, layers=cfg.n_layers, d=cfg.d_model,
+          experts=f"{cfg.moe.n_experts} (padded {E}) top-{cfg.moe.top_k}",
+          params=n_params, weight_bytes=sum(p.numel() * p.element_size()
+                                            for p in lm.parameters()),
+          init_s=f"{init_s:.2f}",
+          allocated_gb=f"{torch.cuda.memory_allocated(dev) / 1e9:.2f}")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                              device=dev)
+    prompts[MOE_REPEATED_ROW] = prompts[MOE_REPEATED_ROW, 0]
+    counts = (FAK.flash_attention_kernel, PAK.paged_attention_kernel,
+              PWK.two_stage_translate_kernel)
+    last = cfg.n_layers - 1
+    tee = kept_inputs(MOE, {0, last}, MOE_ROUTE_TOKENS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with DispatchCounts(torch, MOE, E, dev) as dc, \
+            patched(MOE, "apply_moe", tee):
+        (prefill_s, at_prefill, at_end, tokens, _, cache, _, _) = serve(
+            torch, dev, cfg, lm, TF, prompts[:, :S], counts, steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    drops = dc.drops.tolist()
+    padded = int(dc.per_expert[cfg.moe.n_experts:].sum())
+    phase("moe", path=f"prefill {B} x {S} + {steps} decode steps",
+          flash_launches_prefill=at_prefill[0],
+          flash_launches_total=at_end[0],
+          paged_attention_launches=at_end[1], pagewalk_launches=at_end[2],
+          capacity=MOE.capacity(cfg, S),
+          dropped_assignments_per_row=drops,
+          last_token_dropped_per_row=dc.last_drops.tolist(),
+          tokens_to_padded_experts=padded,
+          first_prefill_wall_s=f"{prefill_s:.3f}",
+          peak_allocated_gb=f"{peak / 1e9:.2f}")
+    if at_prefill[0] != cfg.n_layers or at_end[0] != cfg.n_layers:
+        raise RuntimeError(f"{arch}: the prefill launched the flash kernel "
+                           f"{at_prefill[0]} times (decode: "
+                           f"{at_end[0] - at_prefill[0]}), not once per "
+                           f"layer")
+    if not drops[MOE_REPEATED_ROW] > 0:
+        raise RuntimeError(f"{arch}: the repeated row dropped nothing")
+    if padded:
+        raise RuntimeError(f"{arch}: {padded} assignments reached a padded "
+                           f"expert")
+    tok = tokens.cpu().numpy()
+    phase("moe", greedy_tokens=tok.tolist())
+    del cache
+    kept = tee.kept
+
+    # steady state: a second serve, then one profiled decode step
+    (prefill2_s, _, _, tokens2, step_ms, cache, pos, _) = serve(
+        torch, dev, cfg, lm, TF, prompts[:, :S], counts, steps)
+    decode_ms = sum(step_ms) / len(step_ms)
+    bound_ms = weight_and_cache_bytes(cfg, lm, B, S + steps) / \
+        HBM_BYTES_PER_S * 1e3
+    nxt = tokens2[:, -1]
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: TF.decode_step(lm, cfg, nxt, pos, cache))
+    phase("moe", prefill_wall_s=f"{prefill2_s:.3f}",
+          prefill_tok_per_s=f"{B * S / prefill2_s:.0f}",
+          decode_steps=len(step_ms), decode_ms_per_step=f"{decode_ms:.3f}",
+          decode_ms_median=f"{statistics.median(step_ms):.3f}",
+          decode_ms_min_max=f"{min(step_ms):.3f}/{max(step_ms):.3f}",
+          decode_bound_ms=f"{bound_ms:.3f}", decode_bound_by="bytes",
+          decode_over_bound=f"{decode_ms / bound_ms:.2f}",
+          same_tokens_as_first_serve=bool(torch.equal(tokens2, tokens)))
+    if busy_ms is None:
+        phase("moe", decode_device_idle_share="not measured",
+              decode_step_profiled_ms=f"{prof_ms:.3f}")
+    else:
+        phase("moe", decode_device_busy_ms=f"{busy_ms:.3f}",
+              decode_device_idle_share=f"{1.0 - busy_ms / decode_ms:.4f}",
+              decode_step_profiled_ms=f"{prof_ms:.3f}",
+              idle_share_of_profiled_step=f"{1.0 - busy_ms / prof_ms:.4f}")
+    phase("moe", decode_step_top_kernels=top)
+    del cache, tokens2
+    gc.collect()
+    # where the prefill's device time goes: one profiled prefill
+    cache = TF.init_cache(cfg, B, S, device=dev)
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: TF.prefill(lm, cfg, prompts[:, :S], cache), top_n=10)
+    phase("moe", prefill_device_busy_ms=None if busy_ms is None
+          else f"{busy_ms:.1f}", prefill_profiled_s=f"{prof_ms / 1e3:.3f}",
+          prefill_top_kernels=top)
+    del cache
+
+    # checks at B = 1
+    worst = 0.0
+    if arch == MOE_RUNS[0][0]:
+        worst = moe_route_checks(torch, MOE, cfg, lm, kept)
+    del kept
+    # decode against prefill (ROADMAP R7): a prefill drops the assignments
+    # past capacity, decode (C = 1 for its one token) none, and the seeded
+    # models' deep layers route most tokens of a row alike (the path line's
+    # drops), so at the configured capacity factor every row's last token
+    # drops.  The check runs at capacity factor E_real / k, where C = T and
+    # nothing can drop (decode's C stays 1); its first prefill holds the
+    # kernel against its plain version on every layer
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    teed = teed_flash(torch, FAK, flash_attention_ref)
+    decode_check(torch, dev, nodrop, lm, TF, prompts[:1], "moe", attend=teed,
+                 held=HeldDecode(torch, MOE, E, dev))
+    if len(teed.errs) != cfg.n_layers:
+        raise RuntimeError("the teed prefill did not attend once per layer")
+    layer_err = max(e for e, _, _ in teed.errs)
+    short_rel = [c[0] for _, _, c in teed.errs]
+    phase("moe", route="kernel vs plain flash on each layer's q, k, v",
+          layers=len(teed.errs), max_abs_err=f"{layer_err:.3e}",
+          tol=BF16_TOL,
+          max_row_rel_err=f"{max(r for _, r, _ in teed.errs):.3e}",
+          row_rel_tol=BF16_ROW_REL_TOL)
+    phase("moe", layer_control="kernel with each query's own key dropped "
+          "vs plain flash on each layer's q, k, v",
+          max_row_rel_err=f"{max(short_rel):.3e}",
+          must_exceed=BF16_ROW_REL_TOL,
+          layers_above_tol=sum(r > BF16_ROW_REL_TOL for r in short_rel))
+    if not max(short_rel) > BF16_ROW_REL_TOL:
+        raise RuntimeError(f"the per-layer check cannot see one key short: "
+                           f"{max(short_rel):.3e} <= {BF16_ROW_REL_TOL}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return max(worst, layer_err)
+
+
+def moe_phase(torch, np, dev) -> dict:
+    """The kernel at both models' causal prefill shapes, then each model
+    served (``moe_serve``).  Returns the kernel's max abs error."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("moe", allocated_at_start_gb=
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    worst = 0.0
+    for arch, B, S, _ in MOE_RUNS:
+        cfg = get_config(arch)
+        shape = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        for b in ((1, B) if arch == MOE_RUNS[0][0] else (B,)):
+            out = flash_causal_times(torch, dev, gen, FAK,
+                                     flash_attention_ref, scratch.zero_,
+                                     (b, S) + shape)
+            worst = max(worst, out["max_abs_err"])
+    del scratch
+    torch.cuda.empty_cache()
+    for arch, B, S, steps in MOE_RUNS:
+        t1 = time.perf_counter()
+        worst = max(worst, moe_serve(torch, np, dev, arch, B, S, steps))
+        phase("moe", arch=arch, wall_s=f"{time.perf_counter() - t1:.1f}")
+    phase("moe", phase_wall_s=f"{time.perf_counter() - t0:.1f}")
+    return {"max_abs_err": worst}
 
 
 def walk_times(torch, np, dev, smi: str) -> int:
@@ -2100,6 +2652,9 @@ def main(argv=None) -> int:
     walk["ms"], walk["plain_ms"], walk["bound_ms"] = path_times
     torch.cuda.empty_cache()
     flash = model_phase(torch, np, dev)
+    torch.cuda.empty_cache()
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               moe_phase(torch, np, dev)["max_abs_err"])
     kernels = [walk, attention, flash]
     torch.cuda.empty_cache()
     # last: after CUDA graphs were captured and traced in a process, a

@@ -11,7 +11,9 @@ are not ported yet):
 
 ``attention_core`` stays plain PyTorch, as the JAX package leaves it to
 XLA: it rounds QK^T to the compute dtype before its fp32 softmax and casts
-the weights back before P V, where the kernel keeps both in fp32.
+the weights back before P V, where the kernel keeps both in fp32.  It
+contracts each KV head against its G query heads; JAX repeats K/V to H
+heads first, which gives the same products.
 """
 from __future__ import annotations
 
@@ -85,18 +87,19 @@ def _causal_mask(q_pos, k_pos, window: int):
 def attention_core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
     """q:[B,S,H,hd] k,v:[B,T,KV,hd] mask:[B,1,S,T] or broadcastable.
 
-    GQA flat-head (K/V repeated to H); the QK^T product in the operands'
-    dtype, then an fp32 softmax whose weights go back to v's dtype."""
-    H, KV = q.shape[2], k.shape[2]
-    G = H // KV
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    GQA grouped over KV heads: q is viewed as [B,S,KV,G,hd] (head
+    h = kv*G + g, the order JAX's repeat of K/V gives) and contracted
+    against k/v as they are, with no copy of K/V per query head; the QK^T
+    product in the operands' dtype, then an fp32 softmax whose weights go
+    back to v's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.view(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
     scores = softcap(scores, attn_softcap)
-    scores = torch.where(mask, scores, NEG_INF)
+    scores = torch.where(mask.unsqueeze(2), scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthd->bshd", w, v)
+    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, hd)
 
 
 def _out_proj(p: Attention, cfg: ModelConfig, out):

@@ -1,17 +1,20 @@
-"""Model assembly: decoder-only dense LMs, the serving path (prefill and
-decode over a dense K/V cache).
+"""Model assembly: decoder-only dense and MoE LMs, the serving path
+(prefill and decode over a dense K/V cache).
 
 The JAX package stacks its layers into superblocks and scans them; the
 port keeps them in a plain list (``LM.layers``) and loops.  Its cache is a
 list with one ``{"k": [B,T,KV,hd], "v": [B,T,KV,hd]}`` per layer.
 
 Computation is in bf16 (``COMPUTE_DTYPE``) with the projection and
-embedding weights held in bf16, which is bit-identical to the JAX
-package's fp32 weights cast at every use; norm weights stay fp32.
+embedding weights (expert weights too) held in bf16, which is
+bit-identical to the JAX package's fp32 weights cast at every use; norm
+weights and the MoE router stay fp32.  An MoE config's blocks hold
+``moe`` (``models/moe.py``) in place of ``mlp``, as JAX's do; serving
+drops the MoE aux loss.
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP queue 1
-item 5 lists them in order): MoE blocks, RG-LRU and SSM blocks, the
-encoder-decoder path, the frontend ``extra_embeds`` path, and training.
+item 5 lists them in order): RG-LRU and SSM blocks, the encoder-decoder
+path, the frontend ``extra_embeds`` path, and training.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.device import resolve
 from repro_torch.indexing import take
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
                                        param)
 
@@ -41,8 +45,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_enc_dec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is "
                                   f"{NOT_PORTED}")
-    if cfg.moe.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are {NOT_PORTED}")
     other = sorted(set(_pattern(cfg)) - {"attn"})
     if other:
         raise NotImplementedError(f"{cfg.name}: {'/'.join(other)} blocks are "
@@ -54,7 +56,8 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """An ``attn`` block with a dense MLP: norm1, attn, norm2, mlp."""
+    """An ``attn`` block: norm1, attn, norm2, and ``moe`` (an MoE config)
+    or a dense ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
@@ -62,7 +65,10 @@ class Block(nn.Module):
         self.norm1 = init_norm(cfg.norm_type, cfg.d_model, device)
         self.attn = attn_mod.Attention(cfg, generator, COMPUTE_DTYPE, device)
         self.norm2 = init_norm(cfg.norm_type, cfg.d_model, device)
-        self.mlp = mlp_mod.MLP(cfg, generator, COMPUTE_DTYPE, device)
+        if cfg.moe.n_experts:
+            self.moe = moe_mod.MoE(cfg, generator, COMPUTE_DTYPE, device)
+        else:
+            self.mlp = mlp_mod.MLP(cfg, generator, COMPUTE_DTYPE, device)
 
 
 class LM(nn.Module):
@@ -122,7 +128,10 @@ def apply_block(p: Block, cfg: ModelConfig, x, positions, mode: str,
         raise NotImplementedError(f"mode {mode!r}: training is {NOT_PORTED}")
     x = x + rs * a
     h2 = apply_norm(cfg.norm_type, p.norm2, x, cfg.norm_eps)
-    m = mlp_mod.apply_mlp(p.mlp, cfg, h2)
+    if cfg.moe.n_experts:
+        m, _ = moe_mod.apply_moe(p.moe, cfg, h2)
+    else:
+        m = mlp_mod.apply_mlp(p.mlp, cfg, h2)
     return x + rs * m, {"k": k, "v": v}
 
 

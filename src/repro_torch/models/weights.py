@@ -4,7 +4,10 @@
 ``transformer.init_lm`` (its leaves as numpy arrays) and loads it into the
 port's ``LM``: the superblock stack ``params["layers"]["b{i}_{kind}"]`` is
 unstacked along its leading axis and the remainder blocks
-``params["rem{j}_{kind}"]`` follow, in layer order.
+``params["rem{j}_{kind}"]`` follow, in layer order.  An MoE block's
+``moe`` subtree (router, w_gate, w_up, w_down) is unstacked like the rest
+into ``Block.moe``; a leaf missing on either side, or of another shape,
+raises.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ their plain versions, and the hext graph engine (device gates, one CUDA
 graph) against the eager engine, with a CPU snapshot restored onto the
 card; and the fleet operations on the graph engine (a 32-case torture
 corpus against the oracle, a migration, ``replace_hart`` with no new
-graph, and the service's long-workload park/resume and N=3 shed cases).
+graph, and the service's long-workload park/resume and N=3 shed cases);
+and the MoE block and a reduced MoE LM on the card against the CPU.
 This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -40,6 +41,7 @@ from repro_torch.kernels.pagewalk import kernel as K
 from repro_torch.kernels.pagewalk import ops
 from repro_torch.kernels.pagewalk.ref import (Coord, translate_ref,
                                               two_stage_translate_ref)
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
 
 pytestmark = pytest.mark.cuda
@@ -677,6 +679,94 @@ def test_dense_lm_on_card_matches_cpu(cuda):
                                   pos.to(cuda), c_gpu)
         assert _rel(b, a) <= 2e-2
     assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers
+
+
+def _row_close(got, want, elem=2e-2, row=1e-2):
+    """bf16: by element (of the max value) and by row norm; rows that are
+    zero on both sides (tokens whose every assignment dropped) agree."""
+    g, w = got.float().cpu(), want.float().cpu()
+    assert float((g - w).abs().max()) <= elem * float(w.abs().max())
+    gn, wn = (g - w).norm(dim=-1), w.norm(dim=-1)
+    assert bool((gn[wn == 0] == 0).all())
+    assert float((gn[wn > 0] / wn[wn > 0]).max()) <= row
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m"])
+def test_moe_layer_on_card_matches_cpu(cuda, arch):
+    """One MoE layer at full width (seeded bf16 experts), 2 x 256 tokens,
+    the second row one token repeated (its assignments overflow): the
+    CPU's routing of the card's fp32 logits equals the card's (experts,
+    gates, ranks, keep set) bit for bit; the card's output is within
+    2e-2 by element and 1e-2 by row of the CPU's on that routing; two
+    runs on the card are bit-equal."""
+    cfg = get_config(arch)
+    cpu = MOE.MoE(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card = MOE.MoE(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 256, cfg.d_model), generator=g).bfloat16()
+    x[1] = x[1, :1]
+    xc = x.to(cuda)
+    logits = MOE.router_logits(card, cfg, xc)
+    gates, experts, _ = MOE.route_logits(cfg, logits, torch.bfloat16)
+    g0, e0, _ = MOE.route_logits(cfg, logits.cpu(), torch.bfloat16)
+    assert torch.equal(experts.cpu(), e0) and torch.equal(gates.cpu(), g0)
+    E, C = MOE._padded_experts(cfg), MOE.capacity(cfg, 256)
+    rank, keep = MOE.dispatch(experts, E, C)
+    r0, k0 = MOE.dispatch(e0, E, C)
+    assert torch.equal(rank.cpu(), r0) and torch.equal(keep.cpu(), k0)
+    assert int((~k0[1]).sum()) > 0 and int(e0.max()) < cfg.moe.n_experts
+    y1, _ = MOE.apply_moe(card, cfg, xc)
+    y2, _ = MOE.apply_moe(card, cfg, xc)
+    assert torch.equal(y1, y2)
+    want = MOE._gather_moe(cpu, cfg, x, g0, e0)
+    _row_close(y1, want)
+
+
+def test_moe_lm_on_card_matches_cpu(cuda, monkeypatch):
+    """Reduced Qwen3-MoE: prefill of 64 tokens (one flash launch a layer)
+    and 4 decode steps on the card against the same weights on the CPU,
+    logits within 2e-2 by row.  Routing is a step function of h2, which
+    the two devices round differently, so each MoE call on the card is
+    held on the CPU's h2: the card's h2 within 2e-2 by row of the CPU's,
+    the CPU's routing of the card's logits for the CPU's h2 equal to the
+    card's, and the card goes on with that routing."""
+    cfg = get_config("qwen3_moe_30b_a3b", reduced=True)
+    lm_cpu = TF.init_lm(cfg, 5, device="cpu")
+    lm_gpu = TF.init_lm(cfg, 5, device="cpu").to(cuda)
+    rng = np.random.default_rng(12)
+    B, S = 2, 64
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 4)))
+    toks[1, :S] = toks[1, 0]
+    route, seen = MOE._route, []
+
+    def held(p, cfg, x):
+        if not x.is_cuda:
+            seen.append(x)
+            return route(p, cfg, x)
+        want = seen.pop(0)
+        _row_close(x, want, row=2e-2)
+        logits = MOE.router_logits(p, cfg, want.to(x.device))
+        out = MOE.route_logits(cfg, logits, x.dtype)
+        ref = MOE.route_logits(cfg, logits.cpu(), x.dtype)
+        assert torch.equal(out[1].cpu(), ref[1])
+        return out
+
+    monkeypatch.setattr(MOE, "_route", held)
+    c_cpu = TF.init_cache(cfg, B, cfg.max_seq, device="cpu")
+    c_gpu = TF.init_cache(cfg, B, cfg.max_seq, device=cuda)
+    n0 = FAK.flash_attention_kernel.launches
+    a, c_cpu = TF.prefill(lm_cpu, cfg, toks[:, :S], c_cpu)
+    b, c_gpu = TF.prefill(lm_gpu, cfg, toks[:, :S].to(cuda), c_gpu)
+    assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers
+    assert _rel(b, a) <= 2e-2
+    for t in range(4):
+        pos = torch.full((B,), S + t)
+        a, c_cpu = TF.decode_step(lm_cpu, cfg, toks[:, S + t], pos, c_cpu)
+        b, c_gpu = TF.decode_step(lm_gpu, cfg, toks[:, S + t].to(cuda),
+                                  pos.to(cuda), c_gpu)
+        assert _rel(b, a) <= 2e-2
+    assert not seen
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ def test_port_has_modules():
                 "kernels/paged_attention/ops.py",
                 "configs/base.py", "configs/__init__.py",
                 "configs/h2o_danube_3_4b.py", "models/layers.py",
-                "models/mlp.py", "models/attention.py",
+                "models/mlp.py", "models/moe.py", "models/attention.py",
                 "models/transformer.py", "models/weights.py",
                 "kernels/flash_attention/ref.py",
                 "kernels/flash_attention/kernel.py",

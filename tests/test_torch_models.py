@@ -9,6 +9,15 @@ and weights) where JAX's ``attention_core`` rounds both to bf16, and bf16
 matmuls accumulate in another order.  So bf16 results are held within
 2e-2 by relative norm and by max |error| / max |value|; the same paths in
 fp32 (``COMPUTE_DTYPE`` switched on both sides) are held within 1e-4.
+
+The MoE archs serve through the same tests.  Their top-k routing is a
+step function of the block's normed input h2, and the bf16 h2 of the two
+frameworks differs by rounding (~3e-3 by norm), which flips near-tied
+picks and, through the capacity ranks, which later assignments drop.  So
+in bf16 each MoE call is held on JAX's own h2 (``_route_on_jax_inputs``):
+the port's h2 within 2e-2 of JAX's, the port's routing of JAX's h2 equal
+to JAX's bit for bit, and the path goes on with that routing.  In fp32
+the port routes its own h2.
 """
 import dataclasses
 
@@ -22,6 +31,7 @@ from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
+from repro.models import moe as jmoe
 from repro.models import transformer as jtf
 from repro.models.layers import split_pv_tree
 from repro_torch import configs
@@ -29,13 +39,15 @@ from repro_torch.kernels.flash_attention import kernel as FAK
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
 from repro_torch.models.weights import from_jax_params, load_tree
 
 DENSE = ["h2o_danube_3_4b", "minicpm_2b", "qwen15_32b", "nemotron_4_340b",
          "internvl2_2b"]
-NOT_PORTED = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m",
-              "recurrentgemma_9b", "mamba2_130m", "whisper_base"]
+MOE_ARCHS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
+SERVED = DENSE + MOE_ARCHS
+NOT_PORTED = ["recurrentgemma_9b", "mamba2_130m", "whisper_base"]
 TOL = 2e-2
 
 
@@ -261,6 +273,39 @@ def test_attn_decode_matches_jax(ring, dtype):
         _assert_kv_equal(tv, cv, dtype)
 
 
+def _core_repeated(q, k, v, mask, scale, cap=0.0):
+    """attention_core as JAX computes it: K/V repeated to H heads."""
+    G = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    scores = torch.where(mask, L.softcap(scores, cap), A.NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", w, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 1, 40, 8, 2, 16), (2, 9, 9, 6, 3, 8),
+                                   (1, 1, 33, 4, 4, 16),
+                                   (2, 5, 17, 8, 1, 32)],
+                         ids=lambda s: "B{}S{}T{}H{}KV{}hd{}".format(*s))
+def test_grouped_core_matches_repeated(shape, dtype):
+    """attention_core contracts each KV head against its G query heads
+    (head h = kv*G + g); the repeated-K/V form gives the same output:
+    within 1e-6 in fp32, within one bf16 ulp in bf16, softcap or not."""
+    B, S, T, H, KV, hd = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g).to(dt)
+               for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    mask = torch.rand((B, 1, S, T), generator=g) < 0.7
+    mask[..., 0] = True
+    for cap in (0.0, 5.0):
+        got = A.attention_core(q, k, v, mask, 0.3, cap)
+        want = _core_repeated(q, k, v, mask, 0.3, cap)
+        tol = 1e-6 if dtype == "float32" else 2 ** -8
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # the serving path: prefill -> decode_step
 # ---------------------------------------------------------------------------
@@ -291,10 +336,47 @@ def _serve_both(arch, S=64, steps=4, B=2, max_seq=64):
     return cfg, out
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_decode_match_jax_bf16(arch):
+def _route_on_jax_inputs(monkeypatch):
+    """Hold each MoE call of the port on the h2 of JAX's matching call.
+
+    JAX's ``_route`` records (h2, gates, experts) of every call, in
+    order; the port's ``_route`` takes the next record, asserts its own
+    h2 within TOL of JAX's and its routing of JAX's h2 equal to JAX's bit
+    for bit, and returns that routing.  The returned list gets, per call,
+    the number of picks the port's own h2 would have routed otherwise."""
+    calls, flips = [], []
+    jroute, troute = jmoe._route, MOE._route
+
+    def recording(p, cfg, x):
+        gates, experts, aux = jroute(p, cfg, x)
+        jax.debug.callback(
+            lambda *a: calls.append([np.array(t) for t in a]), x, gates,
+            experts, ordered=True)
+        return gates, experts, aux
+
+    def on_jax_input(p, cfg, x):
+        jax.effects_barrier()
+        jx, jg, je = calls.pop(0)
+        assert_bf16_close(x, jx)
+        gates, experts, aux = troute(p, cfg, _t(_np(jx), x.dtype))
+        np.testing.assert_array_equal(experts.numpy(), je)
+        np.testing.assert_array_equal(gates.float().numpy(), _np(jg))
+        flips.append(int((troute(p, cfg, x)[1].numpy() != je).sum()))
+        return gates, experts, aux
+
+    monkeypatch.setattr(jmoe, "_route", recording)
+    monkeypatch.setattr(MOE, "_route", on_jax_input)
+    return flips
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_prefill_decode_match_jax_bf16(arch, monkeypatch):
     """Reduced configs at S = 64 (Danube: window 32 < S, so the prefill
-    merge keeps the ring-aligned tail and decode runs the ring branch)."""
+    merge keeps the ring-aligned tail and decode runs the ring branch).
+    MoE archs route each call on JAX's h2 (``_route_on_jax_inputs``)."""
+    moe = arch in MOE_ARCHS
+    if moe:
+        flips = _route_on_jax_inputs(monkeypatch)
     cfg, out = _serve_both(arch)
     for tl, jl, tc, jc in out:
         assert tl.dtype == torch.bfloat16 and tl.shape == (2, cfg.vocab_size)
@@ -302,9 +384,11 @@ def test_prefill_decode_match_jax_bf16(arch):
         for t, j in zip(tc, jc):
             assert_bf16_close(t["k"], j["k"])
             assert_bf16_close(t["v"], j["v"])
+    if moe:     # every MoE call of the prefill and the 4 steps was held
+        assert len(flips) == cfg.n_layers * len(out)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_match_jax_fp32(arch, monkeypatch):
     """The same path with fp32 as the compute dtype on both sides: the
     algorithm, masks and ring arithmetic agree to fp32 rounding."""
@@ -359,7 +443,7 @@ def test_teacher_forced_decode_equals_prefill(arch):
 # shapes, indexing rules, what is not ported
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_full_width_init_shapes_match_jax(arch):
     """init_lm at full width and depth on the meta device has JAX's
     init_lm tree shapes (``jax.eval_shape``: nothing is allocated)."""
@@ -385,7 +469,7 @@ def test_full_width_init_shapes_match_jax(arch):
         assert n == cfg.n_params() + (2 * cfg.n_layers + 1) * cfg.d_model
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 @pytest.mark.parametrize("max_seq", [16, 64, 8192])
 def test_cache_shapes_match_jax(arch, max_seq):
     for reduced in (True, False):
@@ -463,6 +547,21 @@ def test_from_jax_params_rejects_a_mismatched_tree():
     params["final_norm"]["w"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="shape"):
         from_jax_params(cfg, params, device="cpu")
+    # the moe subtree of an MoE config: a missing leaf, a leaf of the
+    # wrong shape
+    cfg = configs.get_config("granite_moe_3b_a800m", reduced=True)
+    jcfg = jconfigs.get_config("granite_moe_3b_a800m", reduced=True)
+    params = jax.tree.map(np.asarray,
+                          jtf.init_lm(jcfg, jax.random.PRNGKey(14))[0])
+    del params["layers"]["b0_attn"]["moe"]["w_up"]
+    with pytest.raises(KeyError, match="w_up"):
+        from_jax_params(cfg, params, device="cpu")
+    params = jax.tree.map(np.asarray,
+                          jtf.init_lm(jcfg, jax.random.PRNGKey(14))[0])
+    router = params["layers"]["b0_attn"]["moe"]["router"]
+    params["layers"]["b0_attn"]["moe"]["router"] = router[..., :40]
+    with pytest.raises(ValueError, match="router"):
+        from_jax_params(cfg, params, device="cpu")
 
 
 def test_entry_points_default_to_cuda():
@@ -480,6 +579,8 @@ _DEFAULT_DEVICE_CALLS = {
     "Block": lambda cfg: TF.Block(cfg),
     "Attention": lambda cfg: A.Attention(cfg),
     "MLP": lambda cfg: M.MLP(cfg),
+    "MoE": lambda cfg: MOE.MoE(configs.get_config("qwen3_moe_30b_a3b",
+                                                  reduced=True)),
     "init_norm": lambda cfg: L.init_norm(cfg.norm_type, cfg.d_model),
     "dense_init": lambda cfg: L.dense_init(None, cfg.d_model, cfg.d_ff),
     "embed_init": lambda cfg: L.embed_init(None, cfg.vocab_size,

@@ -93,7 +93,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  ``tests/test_kernels.py`` (fp32 2e-5 on the SIMT kernel,
                  timed once; bf16 2e-2 on the tensor-core kernel), at a
                  ragged S with hd 120, hd 20, a window edge inside a key
-                 tile and G = 1, and one KV head at a time at the
+                 tile and G = 1, hd 256 at G 16 (both kernels) and hd 250,
+                 and one KV head at a time at the
                  model's prefill shape, B = 1 and the path's B = 4; then
                  the path: ``prefill`` of 4 seeded 8192-token prompts
                  (every kernel count set to 0 just before it and read just
@@ -138,12 +139,46 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  kernel against its plain version on every layer's q, k,
                  v (control: each query's own key dropped) and decode
                  against a fresh prefill (with its control), at a
-                 capacity factor where nothing drops (ROADMAP R7).
+                 capacity factor where nothing drops (ROADMAP R7);
+9. recurrent   — (after phase 8, before phase 4) the recurrent,
+                 state-space, encoder-decoder and frontend paths: the
+                 flash_attention kernel at RecurrentGemma-9B's prefill
+                 shape (B 1 and 4, S 8192, H 16, KV 1, hd 256, window 2048)
+                 against its plain version one batch row at a time, timed
+                 beside its bound, SDPA with the window as a mask and the
+                 plain version, with the ptxas lines of its HDP 256
+                 instantiations; then RecurrentGemma-9B (38 layers, 12
+                 x (R, R, A) + R, R; 9.40 B parameters), Mamba2-130M (24 SSD
+                 layers), Whisper-base (6 + 6 layers, 1,500 seeded
+                 frames) and InternVL2-2B (24 layers, 256 seeded patch
+                 embeddings before the text) at full width and depth from
+                 seeded bf16 weights built on the card: ``prefill`` of 4
+                 prompts (8192, 8192, 448 and 256 + 7936 positions) with
+                 every kernel count set to 0 just before and read just
+                 after (exactly 12 / 0 / 6 / 24 flash launches), 16 greedy
+                 ``decode_step``s; peak memory, the weight init, prefill
+                 wall beside its FLOP bound, decode ms a step beside its
+                 byte bound and the device idle share of a decode step;
+                 at B = 1: RecurrentGemma's kernel against its plain
+                 version on every attention layer's q, k, v (control: the
+                 window one key short) and the RG-LRU scan of layer 0 and
+                 layer 37 (a remainder block) against the sequential fp32
+                 recurrence on the card (control: one step late);
+                 Mamba2's layer-0 ``ssd_chunked`` at a ragged S (8100)
+                 against ``ssd_decode_step`` token by token (control: one
+                 step late); for every model decode against a fresh
+                 prefill (logits 2.5e-2), and at the first layer of each
+                 kind its mixer output (1e-2 by row) beside a control
+                 that must exceed it (an attention layer: one position
+                 too far; a recurrent one: the state one token short).
 
 ``--hext-matrix`` runs only the hext columns that phase 4 leaves out (the
 long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
 all nine, up to 118,264 ticks), each held to the goldens, and prints no
 result line.
+
+``--recurrent`` runs only the build of ``flash_attention`` and phase 9,
+and prints no result line.
 
 ``--serve`` runs only the 16-submission trace of the reference's serve
 smoke (``benchmarks/run_serve.py --smoke``, carried here) through the
@@ -238,7 +273,10 @@ LM_B, LM_S, LM_STEPS = 4, 8192, 16
 # the flash shapes of tests/test_kernels.py (B, S, H, KV, hd, window, dtype)
 # and a ragged S at hd = 120; then, for the tensor-core kernel (bf16), hd =
 # 20 (element loads), a window edge inside a key tile with a ragged last
-# tile, and G = 1 at hd = 120.  fp32 shapes run the SIMT kernel.
+# tile, and G = 1 at hd = 120; then RecurrentGemma's head layout at HDP 256
+# (hd 256, KV 1, G 16) at a ragged S with a window edge inside a 32-key
+# tile, hd 250 (element loads at HDP 256) and hd 256 on the SIMT kernel.
+# fp32 shapes run the SIMT kernel.
 FLASH_SHAPES = ((1, 64, 2, 1, 16, 0, "float32"),
                 (2, 128, 4, 2, 32, 0, "float32"),
                 (1, 128, 4, 4, 32, 32, "float32"),
@@ -247,7 +285,10 @@ FLASH_SHAPES = ((1, 64, 2, 1, 16, 0, "float32"),
                 (1, 100, 8, 2, 120, 32, "bfloat16"),
                 (2, 150, 4, 2, 20, 40, "bfloat16"),
                 (1, 257, 4, 1, 128, 64, "bfloat16"),
-                (1, 200, 4, 4, 120, 0, "bfloat16"))
+                (1, 200, 4, 4, 120, 0, "bfloat16"),
+                (1, 203, 16, 1, 256, 50, "bfloat16"),
+                (2, 77, 4, 2, 250, 0, "bfloat16"),
+                (1, 100, 16, 1, 256, 40, "float32"))
 # the fp32 (SIMT) route is timed once, at this test shape
 FLASH_FP32_TIMED = (1, 100, 8, 2, 120, 32)
 FLASH_FP32_TOL = 2e-5
@@ -272,6 +313,27 @@ MOE_RUNS = (("qwen3_moe_30b_a3b", 4, 8192, 16),
             ("granite_moe_3b_a800m", 4, 4096, 8))
 MOE_REPEATED_ROW = 3               # one token repeated: capacity overflows
 MOE_ROUTE_TOKENS = 1024            # tokens of each routing check
+
+# recurrent: RecurrentGemma-9B (src/repro/configs/recurrentgemma_9b.py),
+# Mamba2-130M, Whisper-base and InternVL2-2B at full width and depth, seeded
+# bf16 weights: (arch, B, text tokens, decode steps, frontend embeddings:
+# whisper's encoder frames or InternVL2's prepended patches).  8192 is a
+# multiple of RecurrentGemma's 2048 window (ROADMAP R6); InternVL2's 256
+# patches + 7936 tokens make S = 8192; Whisper's decoder prompt is 448
+# tokens over 1500 frames.  Each prefill launches the flash kernel once an
+# attention layer: 12 (R, R, A x 12, then R, R), 0, 6 (the decoder's; the
+# encoder and cross attention go through attention_core) and 24.
+REC_RUNS = (("recurrentgemma_9b", 4, 8192, 16, 0),
+            ("mamba2_130m", 4, 8192, 16, 0),
+            ("whisper_base", 4, 448, 16, 1500),
+            ("internvl2_2b", 4, 7936, 16, 256))
+REC_FLASH_LAUNCHES = {"recurrentgemma_9b": 12, "mamba2_130m": 0,
+                      "whisper_base": 6, "internvl2_2b": 24}
+# the RG-LRU scan and the SSD (fp32) against their sequential recurrence on
+# the card, by max |error| / max |value| (the CPU tests' fp32 tolerance)
+SCAN_TOL = 1e-4
+SSD_RAGGED_S = 8100                # 126 chunks of 64 + 36: zero-dt padding
+FP32_PEAK_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 
 
 def phase(name: str, **kv) -> None:
@@ -1856,23 +1918,28 @@ def rel_rows(torch, got, want) -> float:
     return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
 
 
-def serve(torch, dev, cfg, lm, TF, prompts, counts, steps=LM_STEPS):
+def serve(torch, dev, cfg, lm, TF, prompts, counts, steps=LM_STEPS,
+          extra=None):
     """The path: one prefill of the prompts, then ``steps`` greedy decode
     steps; every kernel count is set to 0 just before the prefill and the
     launches of the prefill and of the decode steps are read after each.
-    The cache holds S + steps positions (a window slab: the window)."""
+    ``extra`` are the frontend's embeddings (``prefill``'s
+    ``extra_embeds``): a VLM's F patches come before the text, so decode
+    starts at position F + S.  The cache holds F + S + steps positions (a
+    window slab: the window)."""
     B, S = prompts.shape
-    cache = TF.init_cache(cfg, B, S + steps, device=dev)
+    F = extra_positions(cfg, extra)
+    cache = TF.init_cache(cfg, B, F + S + steps, device=dev)
     torch.cuda.synchronize()
     for c in counts:
         c.launches = 0
     t0 = time.perf_counter()
-    logits, cache = TF.prefill(lm, cfg, prompts, cache)
+    logits, cache = TF.prefill(lm, cfg, prompts, cache, extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     at_prefill = [c.launches for c in counts]
     tokens, step_ms = [], []
-    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), F + S, dtype=torch.int32, device=dev)
     for _ in range(steps):
         nxt = logits.float().argmax(dim=-1)
         tokens.append(nxt)
@@ -1886,6 +1953,12 @@ def serve(torch, dev, cfg, lm, TF, prompts, counts, steps=LM_STEPS):
             raise RuntimeError("decode_step: bad logits")
     return (prefill_s, at_prefill, [c.launches for c in counts],
             torch.stack(tokens, dim=1), step_ms, cache, pos, logits)
+
+
+def extra_positions(cfg, extra) -> int:
+    """Positions a frontend's embeddings take before the text: a VLM's
+    patches do, an encoder's frames do not."""
+    return 0 if extra is None or cfg.is_enc_dec else extra.shape[1]
 
 
 def decode_check(torch, dev, cfg, lm, TF, one, name, attend=None,
@@ -2322,59 +2395,82 @@ def moe_route_checks(torch, MOE, cfg, lm, kept) -> float:
     return worst
 
 
-def flash_causal_times(torch, dev, gen, FAK, ref, flush, shape) -> dict:
-    """The kernel at a causal (window 0) prefill shape (B, S, H, KV, hd):
-    held against its plain version one KV head at a time, then timed
-    beside its bound, SDPA with ``is_causal=True`` (no mask tensor; its
-    fused path; K/V heads repeated outside the timed call) and, at B = 1,
-    the plain version."""
-    B, S, H, KV, hd = shape
+def flash_prefill_times(torch, dev, gen, FAK, ref, flush, shape,
+                        name: str) -> dict:
+    """The kernel at a prefill shape (B, S, H, KV, hd, window): held
+    against its plain version one batch row and KV head at a time, then
+    timed beside its bound, SDPA (K/V heads repeated outside the timed
+    call; causal: ``is_causal=True``, its fused path; windowed: the window
+    as a boolean mask, off its fused path) and, at B = 1, the plain
+    version; printed under phase ``name``."""
+    B, S, H, KV, hd, window = shape
     G, scale = H // KV, hd ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = flash_inputs(torch, gen, dev, B, S, H, KV, hd, torch.bfloat16)
-    got = FAK.flash_attention_kernel(q, k, v, scale, 0)
-    err, rel, _ = check_by_kv_head(torch, ref, got, q, k, v, scale, 0,
-                                   f"flash_attention {shape}")
+    got = FAK.flash_attention_kernel(q, k, v, scale, window)
+    err = rel = 0.0
+    for b in range(B):
+        e, r, _ = check_by_kv_head(torch, ref, got[b:b + 1], q[b:b + 1],
+                                   k[b:b + 1], v[b:b + 1], scale, window,
+                                   f"flash_attention {shape}, row {b}")
+        err, rel = max(err, e), max(rel, r)
     iters = 20 if B == 1 else 5
-    k_ms = time_cuda(lambda: FAK.flash_attention_kernel(q, k, v, scale, 0),
+    k_ms = time_cuda(lambda: FAK.flash_attention_kernel(q, k, v, scale,
+                                                        window),
                      torch, iters=iters, warmup=2, flush=flush)
-    bound_ms, bound_by, flops, nbytes = flash_bound(B, S, H, KV, hd, 0, 2)
+    bound_ms, bound_by, flops, nbytes = flash_bound(B, S, H, KV, hd, window,
+                                                    2)
+    if window:
+        pos = torch.arange(S, device=dev)
+        kw = dict(attn_mask=(pos[None, :] <= pos[:, None]) &
+                  (pos[None, :] > pos[:, None] - window), scale=scale)
+    else:
+        kw = dict(is_causal=True, scale=scale)
     qh, kh, vh = (x.transpose(1, 2) for x in
                   (q, k.repeat_interleave(G, dim=2),
                    v.repeat_interleave(G, dim=2)))
-    lib_err = float((sdpa(qh, kh, vh, is_causal=True, scale=scale)
-                     .transpose(1, 2).float() - got.float()).abs().max())
-    lib_ms = time_cuda(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                    scale=scale), torch, iters=iters,
+    lib_err = float((sdpa(qh, kh, vh, **kw).transpose(1, 2).float()
+                     - got.float()).abs().max())
+    lib_ms = time_cuda(lambda: sdpa(qh, kh, vh, **kw), torch, iters=iters,
                        warmup=2, flush=flush)
-    del qh, kh, vh, got
-    out = dict(max_abs_err=err, ms=k_ms, bound_ms=bound_ms, library_ms=lib_ms)
-    line = dict(flash_shape=shape + (0,), vs_plain_max_abs_err=f"{err:.3e}",
+    del qh, kh, vh, got, kw
+    out = dict(max_abs_err=err, ms=k_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=lib_ms)
+    sdpa_key = "sdpa_masked_ms" if window else "sdpa_causal_ms"
+    line = dict(flash_shape=shape, vs_plain_max_abs_err=f"{err:.3e}",
                 max_row_rel_err=f"{rel:.3e}", kernel_ms=f"{k_ms:.4f}",
                 bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, flops=flops,
                 bytes=nbytes, kernel_over_bound=f"{k_ms / bound_ms:.2f}",
-                sdpa_causal_ms=f"{lib_ms:.4f}",
+                **{sdpa_key: f"{lib_ms:.4f}"},
                 sdpa_over_kernel=f"{lib_ms / k_ms:.3f}",
                 sdpa_vs_kernel_max_abs=f"{lib_err:.3e}")
     if B == 1:
         plain = plain_by_kv_head(torch, ref)
-        out["plain_ms"] = time_cuda(lambda: plain(q, k, v, scale, 0), torch,
-                                    iters=3, warmup=1, flush=flush)
+        out["plain_ms"] = time_cuda(lambda: plain(q, k, v, scale, window),
+                                    torch, iters=3, warmup=1, flush=flush)
         line["plain_by_kv_head_ms"] = f"{out['plain_ms']:.4f}"
-    phase("moe", **line)
+    phase(name, **line)
     return out
 
 
-def weight_and_cache_bytes(cfg, lm, B, T) -> int:
-    """Bytes a decode step must move at B rows over T cached positions:
-    every weight once (of an untied embedding table, B rows) and the K/V
-    cache."""
+def decode_bytes(torch, cfg, lm, cache) -> int:
+    """Bytes a decode step must move: every weight the decoder reads once
+    (of an untied embedding table, the B rows it gathers; no encoder
+    weight), every cache entry read once, and the recurrent states and
+    conv windows written once."""
+    B = cache[0][next(iter(cache[0]))].shape[0]
     n = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if cfg.is_enc_dec:
+        n -= sum(p.numel() * p.element_size()
+                 for p in lm.encoder.parameters())
     if not cfg.tie_embeddings:
         n -= (lm.embed.shape[0] - B) * lm.embed.shape[1] * \
             lm.embed.element_size()
-    kv = 2 * cfg.n_layers * B * T * cfg.n_kv_heads * cfg.resolved_head_dim
-    return n + kv * 2
+    for layer in cache:
+        for name, x in layer.items():
+            n += x.numel() * x.element_size() * (
+                2 if name in ("h", "conv") else 1)
+    return n
 
 
 def moe_serve(torch, np, dev, arch, B, S, steps) -> float:
@@ -2457,7 +2553,7 @@ def moe_serve(torch, np, dev, arch, B, S, steps) -> float:
     (prefill2_s, _, _, tokens2, step_ms, cache, pos, _) = serve(
         torch, dev, cfg, lm, TF, prompts[:, :S], counts, steps)
     decode_ms = sum(step_ms) / len(step_ms)
-    bound_ms = weight_and_cache_bytes(cfg, lm, B, S + steps) / \
+    bound_ms = decode_bytes(torch, cfg, lm, cache) / \
         HBM_BYTES_PER_S * 1e3
     nxt = tokens2[:, -1]
     busy_ms, prof_ms, top = device_busy(
@@ -2552,9 +2648,9 @@ def moe_phase(torch, np, dev) -> dict:
         cfg = get_config(arch)
         shape = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
         for b in ((1, B) if arch == MOE_RUNS[0][0] else (B,)):
-            out = flash_causal_times(torch, dev, gen, FAK,
-                                     flash_attention_ref, scratch.zero_,
-                                     (b, S) + shape)
+            out = flash_prefill_times(torch, dev, gen, FAK,
+                                      flash_attention_ref, scratch.zero_,
+                                      (b, S) + shape + (0,), "moe")
             worst = max(worst, out["max_abs_err"])
     del scratch
     torch.cuda.empty_cache()
@@ -2564,6 +2660,427 @@ def moe_phase(torch, np, dev) -> dict:
         phase("moe", arch=arch, wall_s=f"{time.perf_counter() - t1:.1f}")
     phase("moe", phase_wall_s=f"{time.perf_counter() - t0:.1f}")
     return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# recurrent: RG-LRU and SSM blocks, the encoder-decoder and the frontend path
+# ---------------------------------------------------------------------------
+
+def prefill_bound(torch, cfg, lm, TF, B, S, F_enc) -> dict:
+    """The least time a prefill of B x S positions (an encoder's F_enc
+    frames besides) can take at the card's peaks: every weight matrix once
+    per row it projects (bf16 on the tensor cores, fp32 ones, the RG-LRU
+    gates, on the fp32 units), 4 * hd flops per visible (query, key) pair
+    and head, the SSD's chunk products in fp32; the last position
+    unembedded."""
+    from repro_torch.models import ssm as SSM
+
+    def mats(module, rows):
+        n = [0, 0]
+        for p in module.parameters():
+            if p.ndim >= 2:
+                n[p.dtype == torch.float32] += 2 * p.numel() * rows
+        return n
+
+    def pairs(S, T, window, causal=True):
+        if not causal:
+            return S * T
+        w = window or S
+        return sum(min(q + 1, w) for q in range(S))
+
+    bf16 = fp32 = 0
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    for kind, blk in zip(TF.layer_kinds(cfg), lm.layers):
+        b, f = mats(blk, B * S)
+        bf16, fp32 = bf16 + b, fp32 + f
+        if kind == "attn":
+            bf16 += 4 * hd * H * B * pairs(S, S, cfg.window)
+        elif kind == "ssm":
+            d_inner, Hs, N = SSM.ssm_dims(cfg)
+            L, P = cfg.ssm.chunk, cfg.ssm.head_dim
+            nc = -(-S // L)
+            fp32 += 2 * B * nc * (L * L * N + Hs * L * L * P
+                                  + 2 * Hs * P * N * L)
+    if cfg.is_enc_dec:
+        for blk in lm.encoder.blocks:
+            bf16 += mats(blk, B * F_enc)[0] + \
+                4 * hd * H * B * pairs(F_enc, F_enc, 0, causal=False)
+        for cp in lm.cross:
+            bf16 += 2 * cp.attn.wq.numel() * 2 * B * S + \
+                2 * cp.attn.wk.numel() * 2 * B * F_enc + \
+                4 * hd * H * B * pairs(S, F_enc, 0, causal=False)
+    bf16 += 2 * lm.embed.numel() * B
+    t_bf16, t_fp32 = bf16 / BF16_PEAK_FLOPS, fp32 / FP32_PEAK_FLOPS
+    return dict(bound_s=t_bf16 + t_fp32, bf16_flops=bf16, fp32_flops=fp32)
+
+
+def mixer_tee(out: list):
+    """Inside the block, every layer's mixer (``attn_prefill``,
+    ``attn_decode``, ``apply_rglru``, ``apply_ssm``) appends the last row
+    of its output to ``out``, in layer order."""
+    from repro_torch.models import attention as AT
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import ssm as SSM
+
+    stack = contextlib.ExitStack()
+    for mod, name in ((AT, "attn_prefill"), (AT, "attn_decode"),
+                      (RG, "apply_rglru"), (SSM, "apply_ssm")):
+        def tee(*args, fn=getattr(mod, name), **kw):
+            res = fn(*args, **kw)
+            out.append(res[0][:, -1:].clone())
+            return res
+        stack.enter_context(patched(mod, name, tee))
+    return stack
+
+
+def mixer_decode_check(torch, dev, cfg, lm, TF, one, extra) -> float:
+    """Decode at position F + S (``one`` is [1, S+1] tokens, ``extra`` the
+    frontend's [1, F, d] or None) on the cache of a prefill of the first
+    S, against a fresh prefill of all S + 1: the logits by row norm within
+    DECODE_TOL, and each layer's mixer output (attention, RG-LRU or SSM)
+    against the fresh prefill's last row.  Gates: at the first layer of
+    each kind, where both sides see the same input, decode within
+    BF16_ROW_REL_TOL; its control, the decode one position too far (an
+    attention layer) or on the state of the first S - 1 tokens (a
+    recurrent layer, token S at position S - 1), above it.  The logits'
+    controls are printed.  Returns the logits' error."""
+    S = one.shape[1] - 1
+    T = extra_positions(cfg, extra) + S + 2
+    at = torch.full((1,), T - 2, dtype=torch.int32, device=dev)
+    fresh_rows, dec_rows, off_rows, short_rows = [], [], [], []
+    with mixer_tee(fresh_rows):
+        fresh, _ = TF.prefill(lm, cfg, one,
+                              TF.init_cache(cfg, 1, T, device=dev), extra)
+    cache = TF.init_cache(cfg, 1, T, device=dev)
+    _, cache = TF.prefill(lm, cfg, one[:, :S], cache, extra)
+    saved = [{n: x.clone() for n, x in layer.items()} for layer in cache]
+    with mixer_tee(dec_rows):
+        dec, _ = TF.decode_step(lm, cfg, one[:, S], at, cache)
+    with mixer_tee(off_rows):
+        off, _ = TF.decode_step(lm, cfg, one[:, S], at + 1, saved)
+    del cache, saved
+    short_cache = TF.init_cache(cfg, 1, T, device=dev)
+    _, short_cache = TF.prefill(lm, cfg, one[:, :S - 1], short_cache, extra)
+    with mixer_tee(short_rows):
+        short, _ = TF.decode_step(lm, cfg, one[:, S], at - 1, short_cache)
+    del short_cache
+    V = cfg.vocab_size
+    dvp, off_err, short_err = (rel_rows(torch, x[..., :V], fresh[..., :V])
+                               for x in (dec, off, short))
+    phase("recurrent", arch=cfg.name,
+          check=f"decode at {T - 2} vs a fresh prefill, B=1",
+          logits_row_rel_err=f"{dvp:.3e}", tol=DECODE_TOL,
+          top1_agree=bool((dec.float().argmax(-1) ==
+                           fresh.float().argmax(-1)).all()),
+          control_position_plus_1=f"{off_err:.3e}",
+          control_one_token_short=f"{short_err:.3e}")
+    if not dvp <= DECODE_TOL:
+        raise RuntimeError(f"{cfg.name}: decode differs from prefill: "
+                           f"{dvp:.3e} > {DECODE_TOL}")
+    kinds = TF.layer_kinds(cfg)
+    errs = [rel_rows(torch, d, f) for d, f in zip(dec_rows, fresh_rows,
+                                                 strict=True)]
+    for kind in sorted(set(kinds)):
+        i = kinds.index(kind)
+        ctrl_rows, what = ((off_rows, "one position too far")
+                           if kind == "attn" else
+                           (short_rows, "on the state one token short"))
+        ctrl = rel_rows(torch, ctrl_rows[i], fresh_rows[i])
+        deeper = [e for e, k in zip(errs, kinds) if k == kind][1:]
+        phase("recurrent", arch=cfg.name,
+              check=f"decode's {kind} output vs the prefill's last row, "
+              f"layer {i}", row_rel_err=f"{errs[i]:.3e}",
+              tol=BF16_ROW_REL_TOL, control=what,
+              control_row_rel_err=f"{ctrl:.3e}",
+              must_exceed=BF16_ROW_REL_TOL,
+              deeper_layers_max=f"{max(deeper, default=0.0):.3e}")
+        if not errs[i] <= BF16_ROW_REL_TOL:
+            raise RuntimeError(f"{cfg.name}: decode's {kind} output differs "
+                               f"from the prefill's at layer {i}: "
+                               f"{errs[i]:.3e}")
+        if not ctrl > BF16_ROW_REL_TOL:
+            raise RuntimeError(f"{cfg.name}: the {kind} check cannot see "
+                               f"a decode {what}: {ctrl:.3e}")
+    return dvp
+
+
+def sequential_check(torch, got, want, what) -> float:
+    """max |got - want| / max |want| within SCAN_TOL, and the control, got
+    against ``want`` one step late (got[t] vs want[t - 1]), above it."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    late = float((got[:, 1:] - want[:, :-1]).abs().max()) / scale
+    phase("recurrent", check=what, rel_max_err=f"{err:.3e}", tol=SCAN_TOL,
+          control="the recurrence one step late",
+          control_rel_max_err=f"{late:.3e}", must_exceed=SCAN_TOL)
+    if not err <= SCAN_TOL:
+        raise RuntimeError(f"{what}: {err:.3e} > {SCAN_TOL}")
+    if not late > SCAN_TOL:
+        raise RuntimeError(f"{what}: the check cannot see a recurrence one "
+                           f"step late: {late:.3e}")
+    return err
+
+
+def first_and_last_call(module, name):
+    """A tee of ``module.name`` for ``patched`` that keeps the (args,
+    result) of its first call in ``.first`` and of its last in ``.last``."""
+    def tee(*args, **kw):
+        res = tee.fn(*args, **kw)
+        tee.last = (args, res)
+        if tee.first is None:
+            tee.first = tee.last
+        return res
+    tee.fn, tee.first, tee.last = getattr(module, name), None, None
+    return tee
+
+
+def rglru_scan_gate(torch, dev, cfg, lm, TF, one):
+    """The kernel against its plain version on every attention layer's q,
+    k, v (control: the window one key short) and the RG-LRU scan of layer
+    0 and of the last layer (a remainder block) against the sequential
+    fp32 recurrence over the same a, b on the card (control: the
+    recurrence one step late), all in one B = 1 prefill.  Returns the
+    kernel's max abs error."""
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import rglru as RG
+
+    teed = teed_flash(torch, FAK, flash_attention_ref)
+    scans = first_and_last_call(RG, "linear_scan")
+    with prefill_attention(teed), patched(RG, "linear_scan", scans):
+        TF.prefill(lm, cfg, one, TF.init_cache(cfg, 1, one.shape[1],
+                                                device=dev))
+    n_attn = TF.layer_kinds(cfg).count("attn")
+    if len(teed.errs) != n_attn:
+        raise RuntimeError("the teed prefill did not attend once an "
+                           "attention layer")
+    layer_err = max(e for e, _, _ in teed.errs)
+    short_rel = [c[0] for _, _, c in teed.errs]
+    phase("recurrent", arch=cfg.name,
+          route="kernel vs plain flash on each attention layer's q, k, v",
+          layers=len(teed.errs), max_abs_err=f"{layer_err:.3e}",
+          tol=BF16_TOL,
+          max_row_rel_err=f"{max(r for _, r, _ in teed.errs):.3e}",
+          row_rel_tol=BF16_ROW_REL_TOL,
+          control="window - 1",
+          control_max_row_rel_err=f"{max(short_rel):.3e}",
+          control_least_layer=f"{min(short_rel):.3e}",
+          must_exceed=BF16_ROW_REL_TOL)
+    if not min(short_rel) > BF16_ROW_REL_TOL:
+        raise RuntimeError(f"the per-layer check cannot see a window one "
+                           f"key short: {min(short_rel):.3e}")
+    kinds = TF.layer_kinds(cfg)
+    rglru_layers = [i for i, k in enumerate(kinds) if k == "rglru"]
+    for layer, ((a, b), hs) in zip((rglru_layers[0], rglru_layers[-1]),
+                                   (scans.first, scans.last)):
+        h, seq = torch.zeros_like(b[:, 0]), torch.empty_like(b)
+        for t in range(b.shape[1]):
+            h = torch.addcmul(b[:, t], a[:, t], h)
+            seq[:, t] = h
+        sequential_check(torch, hs, seq, f"{cfg.name} layer {layer} RG-LRU "
+                         f"scan vs the sequential recurrence, "
+                         f"S={b.shape[1]}")
+    return layer_err
+
+
+def ssd_gate(torch, dev, cfg, lm, TF, one):
+    """Layer 0's ``ssd_chunked`` at the ragged S of ``one`` (a prefill at
+    B = 1) against ``ssd_decode_step`` run token by token on the card over
+    the same inputs: y and the final state (control: y one step late)."""
+    from repro_torch.models import ssm as SSM
+
+    calls = first_and_last_call(SSM, "ssd_chunked")
+    with patched(SSM, "ssd_chunked", calls):
+        TF.prefill(lm, cfg, one, TF.init_cache(cfg, 1, one.shape[1],
+                                                device=dev))
+    (x, dt, A, Bm, Cm, D, chunk), (y, h_last) = calls.first
+    del calls
+    h = torch.zeros_like(h_last)
+    seq = torch.empty_like(y)
+    for t in range(x.shape[1]):
+        seq[:, t], h = SSM.ssd_decode_step(x[:, t], dt[:, t], A, Bm[:, t],
+                                           Cm[:, t], D, h)
+    S = x.shape[1]
+    sequential_check(torch, y, seq, f"{cfg.name} layer 0 ssd_chunked vs "
+                     f"ssd_decode_step, S={S} (chunk {chunk}, "
+                     f"{-(-S // chunk)} chunks, {(-S) % chunk} padded)")
+    err = float((h_last - h).abs().max() / h.abs().max())
+    phase("recurrent", check="final state", rel_max_err=f"{err:.3e}",
+          tol=SCAN_TOL)
+    if not err <= SCAN_TOL:
+        raise RuntimeError(f"ssd_chunked's final state: {err:.3e}")
+
+
+def recurrent_serve(torch, np, dev, arch, B, S, steps, n_extra) -> dict:
+    """One model at full width and depth from seeded bf16 weights built on
+    the card: ``prefill`` of B x S prompts (with ``n_extra`` seeded
+    frontend embeddings: whisper's frames or InternVL2's patches) then
+    ``steps`` greedy decode steps, with every kernel count set to 0 just
+    before the prefill and read after (REC_FLASH_LAUNCHES); a second serve
+    for the walls, a profiled decode step for the idle share; then at
+    B = 1 the model's gates and decode against a fresh prefill."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    lm = TF.init_lm(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kinds = TF.layer_kinds(cfg)
+    phase("recurrent", arch=cfg.name, layers=cfg.n_layers,
+          kinds="/".join(f"{k}:{kinds.count(k)}" for k in sorted(set(kinds))),
+          enc_layers=cfg.n_enc_layers, d=cfg.d_model,
+          params=sum(p.numel() for p in lm.parameters()),
+          weight_bytes=sum(p.numel() * p.element_size()
+                           for p in lm.parameters()),
+          init_s=f"{init_s:.2f}",
+          allocated_gb=f"{torch.cuda.memory_allocated(dev) / 1e9:.2f}")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                              device=dev)
+    extra = None
+    if n_extra:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        extra = torch.randn((B, n_extra, cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+    counts = (FAK.flash_attention_kernel, PAK.paged_attention_kernel,
+              PWK.two_stage_translate_kernel)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (prefill_s, at_prefill, at_end, tokens, _, cache, _, _) = serve(
+        torch, dev, cfg, lm, TF, prompts[:, :S], counts, steps, extra)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = REC_FLASH_LAUNCHES[arch]
+    F = extra_positions(cfg, extra)
+    phase("recurrent", arch=cfg.name,
+          path=f"prefill {B} x {F + S}" + (f" ({F} patches + {S} tokens)"
+                                           if F else "")
+          + (f" over {n_extra} encoder frames" if cfg.is_enc_dec else "")
+          + f" + {steps} decode steps",
+          flash_launches_prefill=at_prefill[0],
+          flash_launches_total=at_end[0], flash_launches_expected=want,
+          paged_attention_launches=at_end[1], pagewalk_launches=at_end[2],
+          first_prefill_wall_s=f"{prefill_s:.3f}",
+          peak_allocated_gb=f"{peak / 1e9:.2f}")
+    if not at_prefill[0] == at_end[0] == want == kinds.count("attn"):
+        raise RuntimeError(f"{arch}: the prefill launched the flash kernel "
+                           f"{at_prefill[0]} times (decode: "
+                           f"{at_end[0] - at_prefill[0]}), not {want}")
+    phase("recurrent", arch=cfg.name, greedy_tokens=tokens.cpu().tolist())
+    del cache
+
+    # steady state: a second serve, then one profiled decode step
+    (prefill2_s, _, _, tokens2, step_ms, cache, pos, _) = serve(
+        torch, dev, cfg, lm, TF, prompts[:, :S], counts, steps, extra)
+    decode_ms = sum(step_ms) / len(step_ms)
+    nbytes = decode_bytes(torch, cfg, lm, cache)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pre = prefill_bound(torch, cfg, lm, TF, B, F + S, n_extra)
+    nxt = tokens2[:, -1]
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: TF.decode_step(lm, cfg, nxt, pos, cache))
+    phase("recurrent", arch=cfg.name, prefill_wall_s=f"{prefill2_s:.3f}",
+          prefill_bound_s=f"{pre['bound_s']:.4f}",
+          prefill_bf16_flops=pre["bf16_flops"],
+          prefill_fp32_flops=pre["fp32_flops"],
+          prefill_tok_per_s=f"{B * (F + S) / prefill2_s:.0f}",
+          decode_steps=len(step_ms), decode_ms_per_step=f"{decode_ms:.3f}",
+          decode_ms_median=f"{statistics.median(step_ms):.3f}",
+          decode_ms_min_max=f"{min(step_ms):.3f}/{max(step_ms):.3f}",
+          decode_bound_ms=f"{bound_ms:.3f}", decode_bound_bytes=nbytes,
+          decode_over_bound=f"{decode_ms / bound_ms:.2f}",
+          same_tokens_as_first_serve=bool(torch.equal(tokens2, tokens)))
+    if busy_ms is None:
+        phase("recurrent", arch=cfg.name,
+              decode_device_idle_share="not measured",
+              decode_step_profiled_ms=f"{prof_ms:.3f}")
+    else:
+        phase("recurrent", arch=cfg.name,
+              decode_device_busy_ms=f"{busy_ms:.3f}",
+              decode_device_idle_share=f"{1.0 - busy_ms / decode_ms:.4f}",
+              decode_step_profiled_ms=f"{prof_ms:.3f}",
+              idle_share_of_profiled_step=f"{1.0 - busy_ms / prof_ms:.4f}")
+    phase("recurrent", arch=cfg.name, decode_step_top_kernels=top)
+    del cache, tokens2
+    gc.collect()
+    # where the prefill's device time goes: one profiled prefill
+    cache = TF.init_cache(cfg, B, F + S, device=dev)
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: TF.prefill(lm, cfg, prompts[:, :S], cache, extra),
+        top_n=10)
+    phase("recurrent", arch=cfg.name, prefill_device_busy_ms=None
+          if busy_ms is None else f"{busy_ms:.1f}",
+          prefill_profiled_s=f"{prof_ms / 1e3:.3f}",
+          prefill_top_kernels=top)
+    del cache
+
+    # checks at B = 1
+    one = prompts[:1]
+    one_extra = None if extra is None else extra[:1]
+    worst = 0.0
+    if "rglru" in kinds:
+        worst = rglru_scan_gate(torch, dev, cfg, lm, TF, one[:, :S])
+    if "ssm" in kinds:
+        ssd_gate(torch, dev, cfg, lm, TF, one[:, :SSD_RAGGED_S])
+    mixer_decode_check(torch, dev, cfg, lm, TF, one, one_extra)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "decode_ms": decode_ms,
+            "prefill_s": prefill2_s}
+
+
+def recurrent_phase(torch, np, dev, flash_log: str) -> dict:
+    """The flash kernel at RecurrentGemma-9B's prefill shape (hd 256, MQA:
+    KV 1, G 16, window 2048; B 1 and 4, S 8192) against its plain version,
+    timed beside its bound, SDPA with the window as a mask and the plain
+    version, with the ptxas lines of its HDP 256 instantiations; then each
+    model of REC_RUNS served (``recurrent_serve``).  Returns the kernel's
+    max abs error and its times at RecurrentGemma's shape (B 1)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("recurrent", allocated_at_start_gb=
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f}")
+    for line in ptxas_lines(flash_log):
+        if "<256" in line or "float, 256" in line:
+            phase("recurrent", ptxas=line)
+    cfg = get_config(REC_RUNS[0][0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    shape = (REC_RUNS[0][2], cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.window)
+    times = {}
+    worst = 0.0
+    for b in (1, REC_RUNS[0][1]):
+        times[b] = flash_prefill_times(torch, dev, gen, FAK,
+                                       flash_attention_ref, scratch.zero_,
+                                       (b,) + shape, "recurrent")
+        worst = max(worst, times[b]["max_abs_err"])
+    del scratch
+    torch.cuda.empty_cache()
+    for arch, B, S, steps, n_extra in REC_RUNS:
+        t1 = time.perf_counter()
+        out = recurrent_serve(torch, np, dev, arch, B, S, steps, n_extra)
+        worst = max(worst, out["max_abs_err"])
+        phase("recurrent", arch=arch,
+              wall_s=f"{time.perf_counter() - t1:.1f}")
+    phase("recurrent", phase_wall_s=f"{time.perf_counter() - t0:.1f}")
+    return {"max_abs_err": worst, "rg": times[1],
+            "rg_path_ms": times[REC_RUNS[0][1]]["ms"]}
 
 
 def walk_times(torch, np, dev, smi: str) -> int:
@@ -2593,6 +3110,9 @@ def main(argv=None) -> int:
                     "out (the long four's 1guest-preempt, all nine's "
                     "2guest- and 4guest-preempt), each held to the goldens "
                     "(no other phase, no result line)")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="only the build and the recurrent phase (no "
+                    "other phase, no result line)")
     ap.add_argument("--serve", action="store_true",
                     help="only the 16-submission serve trace through the "
                     "port's service (no other phase, no result line)")
@@ -2620,6 +3140,15 @@ def main(argv=None) -> int:
         phase("hext-matrix", torch=torch.__version__)
         print(smi, flush=True)
         hext_matrix(torch, dev)
+        print(smi, flush=True)
+        return 0
+    if args.recurrent:
+        phase("recurrent", torch=torch.__version__)
+        print(smi, flush=True)
+        info = build.compile_source("flash_attention")
+        phase("build", kernel="flash_attention",
+              seconds=f"{info['seconds']:.2f}")
+        recurrent_phase(torch, np, dev, info["log"])
         print(smi, flush=True)
         return 0
     if args.serve:
@@ -2655,6 +3184,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash["max_abs_err"] = max(flash["max_abs_err"],
                                moe_phase(torch, np, dev)["max_abs_err"])
+    torch.cuda.empty_cache()
+    rec = recurrent_phase(torch, np, dev, infos["flash_attention"]["log"])
+    flash["max_abs_err"] = max(flash["max_abs_err"], rec["max_abs_err"])
+    # the kernel at RecurrentGemma-9B's prefill shape (B 1; the path's B 4)
+    flash.update(recurrentgemma_ms=rec["rg"]["ms"],
+                 recurrentgemma_path_ms=rec["rg_path_ms"],
+                 recurrentgemma_bound_ms=rec["rg"]["bound_ms"],
+                 recurrentgemma_plain_ms=rec["rg"]["plain_ms"],
+                 recurrentgemma_library_ms=rec["rg"]["library_ms"])
     kernels = [walk, attention, flash]
     torch.cuda.empty_cache()
     # last: after CUDA graphs were captured and traced in a process, a

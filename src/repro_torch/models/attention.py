@@ -1,13 +1,16 @@
 """GQA / MQA / MHA attention with full + sliding-window masking.
 
-Two entry points sharing one weight set (training and cross attention
-are not ported yet):
+Entry points sharing one weight set (training is not ported yet):
   attn_prefill  — causal self-attention over a whole prompt, also returns
                   the K/V cache slab; through the flash-attention kernel
                   (``kernels/flash_attention``) unless ``attn_softcap``
   attn_decode   — single-token step against a dense K/V cache (a ring
                   buffer for sliding-window slabs), through
                   ``attention_core``
+  cross_kv, cross_attend — whisper's decoder against the encoder output
+  bidir_attend  — whisper's encoder, unmasked
+The last three go through ``attention_core``, as JAX leaves them to XLA
+(the kernel is causal only).
 
 ``attention_core`` stays plain PyTorch, as the JAX package leaves it to
 XLA: it rounds QK^T to the compute dtype before its fp32 softmax and casts
@@ -24,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.indexing import wrap
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import activation_sharding
 from repro_torch.models.layers import (apply_rope, dense_init, param,
                                        rmsnorm, softcap)
 
@@ -32,10 +36,11 @@ NEG_INF = -1e30
 
 class Attention(nn.Module):
     """wq [d,H,hd], wk/wv [d,KV,hd], wo [H,hd,d] in ``dtype``; optional
-    bq [H,hd], bk/bv [KV,hd] (``dtype``) and q_norm/k_norm [hd] (fp32)."""
+    bq [H,hd], bk/bv [KV,hd] (``dtype``; never on a ``cross`` attention)
+    and q_norm/k_norm [hd] (fp32)."""
 
     def __init__(self, cfg: ModelConfig, generator=None, dtype=torch.float32,
-                 device=None):
+                 device=None, cross: bool = False):
         super().__init__()
         device = resolve(device)
         d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
@@ -49,7 +54,7 @@ class Attention(nn.Module):
         self.wo = param(dense_init(generator, H * hd, d, dtype,
                                    scale=1.0 / (H * hd) ** 0.5,
                                    device=device).reshape(H, hd, d))
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = param(torch.zeros((H, hd), dtype=dtype, device=device))
             self.bk = param(torch.zeros((KV, hd), dtype=dtype, device=device))
             self.bv = param(torch.zeros((KV, hd), dtype=dtype, device=device))
@@ -96,6 +101,9 @@ def attention_core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
     KV = k.shape[2]
     qg = q.view(B, S, KV, H // KV, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    # hook: JAX's [B,H,S,T] scores (h = kv*G + g), a view of these
+    scores = activation_sharding.constrain(scores.flatten(1, 2),
+                                           "scores").unflatten(1, (KV, -1))
     scores = softcap(scores, attn_softcap)
     scores = torch.where(mask.unsqueeze(2), scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -165,3 +173,34 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache_k, cache_v, pos):
     out = attention_core(q, cache_k, cache_v, mask,
                          cfg.resolved_head_dim ** -0.5, cfg.attn_softcap)
     return _out_proj(p, cfg, out), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder) and the bidirectional encoder
+# ---------------------------------------------------------------------------
+
+def cross_kv(p: Attention, cfg: ModelConfig, enc_out):
+    """Precompute K,V from encoder output: [B,T,D] → ([B,T,KV,hd] ×2)."""
+    return _proj(enc_out, p.wk), _proj(enc_out, p.wv)
+
+
+def _unmasked(q, k):
+    return torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+
+
+def cross_attend(p: Attention, cfg: ModelConfig, x, k, v):
+    """Decoder queries against precomputed encoder K/V (no mask, no rope)."""
+    q = _proj(x, p.wq)
+    out = attention_core(q, k, v, _unmasked(q, k),
+                         cfg.resolved_head_dim ** -0.5)
+    return _out_proj(p, cfg, out)
+
+
+def bidir_attend(p: Attention, cfg: ModelConfig, x, positions):
+    """Bidirectional self-attention (whisper encoder).  No rope (the
+    sinusoid positions are already added), no mask."""
+    q, k, v = _project_qkv(p, cfg, x)
+    out = attention_core(q, k, v, _unmasked(q, k),
+                         cfg.resolved_head_dim ** -0.5)
+    return _out_proj(p, cfg, out)

@@ -9,7 +9,8 @@ graph) against the eager engine, with a CPU snapshot restored onto the
 card; and the fleet operations on the graph engine (a 32-case torture
 corpus against the oracle, a migration, ``replace_hart`` with no new
 graph, and the service's long-workload park/resume and N=3 shed cases);
-and the MoE block and a reduced MoE LM on the card against the CPU.
+and the MoE block and a reduced MoE LM on the card against the CPU; and
+the reduced recurrent, state-space, encoder-decoder and frontend LMs.
 This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -577,13 +578,17 @@ def test_paged_decode_attention_on_card_matches_cpu(cuda):
 # (B, S, H, KV, hd, window): tests/test_kernels.py's shapes, then hd = 120
 # at a ragged S, windows 1 and >= S, and Danube's head layout (G = 4); then
 # hd = 20 (the tensor-core kernel's element loads), a window edge inside a
-# key tile with a ragged last tile, and G = 1 at hd = 120
+# key tile with a ragged last tile, and G = 1 at hd = 120; then
+# RecurrentGemma's head layout at hd 256 (KV 1, G 16) at a ragged S with a
+# window edge inside a 32-key tile, and hd 250 (element loads at HDP 256)
 FLASH_SHAPES = [(1, 64, 2, 1, 16, 0), (2, 128, 4, 2, 32, 0),
                 (1, 128, 4, 4, 32, 32), (2, 256, 8, 2, 64, 0),
                 (1, 100, 8, 2, 120, 32), (2, 77, 4, 2, 120, 1),
                 (1, 70, 4, 1, 120, 500), (1, 300, 32, 8, 120, 128),
                 (1, 65, 2, 1, 256, 0), (2, 150, 4, 2, 20, 40),
-                (1, 257, 4, 1, 128, 64), (1, 200, 4, 4, 120, 0)]
+                (1, 257, 4, 1, 128, 64), (1, 200, 4, 4, 120, 0),
+                (1, 203, 16, 1, 256, 50), (2, 77, 4, 2, 250, 0),
+                (1, 100, 16, 1, 256, 40)]
 
 
 def _flash_inputs(rng, B, S, H, KV, hd, dtype, dev):
@@ -679,6 +684,47 @@ def test_dense_lm_on_card_matches_cpu(cuda):
                                   pos.to(cuda), c_gpu)
         assert _rel(b, a) <= 2e-2
     assert FAK.flash_attention_kernel.launches == n0 + cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_130m",
+                                  "whisper_base", "internvl2_2b"])
+def test_recurrent_and_enc_dec_lm_on_card_matches_cpu(cuda, arch):
+    """Reduced RecurrentGemma (RG-LRU + local attention), Mamba2 (SSD),
+    Whisper (encoder frames, cross attention) and InternVL2 (prepended
+    patches): prefill of 64 tokens (one flash launch an attention layer)
+    and 4 decode steps on the card against the same weights on the CPU,
+    logits and every cache entry within 2e-2 by row norm."""
+    cfg = get_config(arch, reduced=True)
+    lm_cpu = TF.init_lm(cfg, 5, device="cpu")
+    lm_gpu = TF.init_lm(cfg, 5, device="cpu").to(cuda)
+    g = torch.Generator().manual_seed(13)
+    B, S = 2, 64
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 4), generator=g)
+    extra, F = None, 0
+    if cfg.is_enc_dec or cfg.n_frontend_tokens:
+        n = cfg.n_enc_ctx if cfg.is_enc_dec else cfg.n_frontend_tokens
+        extra = torch.randn((B, n, cfg.d_model), generator=g)
+        F = 0 if cfg.is_enc_dec else n
+    c_cpu = TF.init_cache(cfg, B, F + S + 4, device="cpu")
+    c_gpu = TF.init_cache(cfg, B, F + S + 4, device=cuda)
+    n0 = FAK.flash_attention_kernel.launches
+    a, c_cpu = TF.prefill(lm_cpu, cfg, toks[:, :S], c_cpu, extra)
+    b, c_gpu = TF.prefill(lm_gpu, cfg, toks[:, :S].to(cuda), c_gpu,
+                          None if extra is None else extra.to(cuda))
+    n_attn = TF.layer_kinds(cfg).count("attn")
+    assert FAK.flash_attention_kernel.launches == n0 + n_attn
+    assert _rel(b, a) <= 2e-2
+    for t in range(4):
+        pos = torch.full((B,), F + S + t)
+        a, c_cpu = TF.decode_step(lm_cpu, cfg, toks[:, S + t], pos, c_cpu)
+        b, c_gpu = TF.decode_step(lm_gpu, cfg, toks[:, S + t].to(cuda),
+                                  pos.to(cuda), c_gpu)
+        assert _rel(b, a) <= 2e-2
+    for lc, lg in zip(c_cpu, c_gpu, strict=True):
+        for n in lc:
+            x, y = lc[n].float().flatten(1), lg[n].float().cpu().flatten(1)
+            assert float((y - x).norm() / x.norm()) <= 2e-2, n
+    assert FAK.flash_attention_kernel.launches == n0 + n_attn
 
 
 def _row_close(got, want, elem=2e-2, row=1e-2):

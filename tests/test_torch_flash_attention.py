@@ -19,11 +19,16 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # (B, S, H, KV, hd, window): the four shapes of
 # tests/test_kernels.py::test_flash_attention_matches_ref, then hd = 120 at
-# a ragged S, and the windows 1 and >= S
+# a ragged S, and the windows 1 and >= S; then RecurrentGemma's head layout
+# (hd 256, KV 1, G 16) at a ragged S with a window edge inside a 32-key
+# tile, hd 250 (the CUDA kernel's element loads at HDP 256) and hd 256 with
+# a window at G 16 (in fp32 the SIMT kernel's shape on the card)
 SHAPES = [(1, 64, 2, 1, 16, 0), (2, 128, 4, 2, 32, 0),
           (1, 128, 4, 4, 32, 32), (2, 256, 8, 2, 64, 0),
           (1, 100, 8, 2, 120, 32), (2, 40, 4, 2, 16, 1),
-          (1, 48, 4, 1, 120, 48), (1, 30, 2, 2, 32, 1000)]
+          (1, 48, 4, 1, 120, 48), (1, 30, 2, 2, 32, 1000),
+          (1, 203, 16, 1, 256, 50), (2, 77, 4, 2, 250, 0),
+          (1, 100, 16, 1, 256, 40)]
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32, 2e-5),
           "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16, 2e-2)}
 

@@ -34,6 +34,8 @@ def test_port_has_modules():
                 "configs/base.py", "configs/__init__.py",
                 "configs/h2o_danube_3_4b.py", "models/layers.py",
                 "models/mlp.py", "models/moe.py", "models/attention.py",
+                "models/rglru.py", "models/ssm.py",
+                "models/activation_sharding.py",
                 "models/transformer.py", "models/weights.py",
                 "kernels/flash_attention/ref.py",
                 "kernels/flash_attention/kernel.py",

@@ -1,5 +1,7 @@
-"""The port's dense LM serving path (``repro_torch.models``) against the
-JAX package's ``repro.models``.
+"""The port's serving path (``repro_torch.models``) against the JAX
+package's ``repro.models``: every architecture the JAX package configures
+(dense, MoE, the RG-LRU hybrid with its remainder blocks, the SSM, the
+whisper encoder-decoder and the VLM with its prepended patch embeddings).
 
 Weights come from the JAX ``init_lm`` (as numpy) through
 ``weights.from_jax_params``; inputs from ``numpy.random.default_rng``.  In
@@ -40,14 +42,24 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as TF
 from repro_torch.models.weights import from_jax_params, load_tree
 
 DENSE = ["h2o_danube_3_4b", "minicpm_2b", "qwen15_32b", "nemotron_4_340b",
          "internvl2_2b"]
 MOE_ARCHS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
-SERVED = DENSE + MOE_ARCHS
-NOT_PORTED = ["recurrentgemma_9b", "mamba2_130m", "whisper_base"]
+RECURRENT = ["recurrentgemma_9b", "mamba2_130m"]
+# a config changed on both sides (dataclasses.replace) and how it serves:
+# RecurrentGemma at 8 layers, 2 x (R, R, A) then the remainder blocks R, R
+# (the reduced config's 6 layers have none); InternVL2 with its prepended
+# patch embeddings (extra_embeds)
+VARIANTS = {"recurrentgemma_9b:8L": ("recurrentgemma_9b", {"n_layers": 8}),
+            "internvl2_2b:patches": ("internvl2_2b", {})}
+SERVED = DENSE + MOE_ARCHS + RECURRENT + ["whisper_base"] + list(VARIANTS)
+# every config of the JAX package, and the 8-layer RecurrentGemma
+ALL_CONFIGS = jconfigs.ARCHS + ["recurrentgemma_9b:8L"]
 TOL = 2e-2
 
 
@@ -76,9 +88,40 @@ def _snapshot(cache):
     return [{n: x.clone() for n, x in layer.items()} for layer in cache]
 
 
-def _jax_cache_layers(jcache, n_layers):
-    return [{n: jcache["layers"]["b0_attn"][n][i] for n in "kv"}
-            for i in range(n_layers)]
+def _configs(name, reduced=True):
+    """(port config, JAX config) of an arch or a ``VARIANTS`` name."""
+    arch, kw = VARIANTS.get(name, (name, {}))
+    return (dataclasses.replace(configs.get_config(arch, reduced=reduced),
+                                **kw),
+            dataclasses.replace(jconfigs.get_config(arch, reduced=reduced),
+                                **kw))
+
+
+def _jax_layer_entries(jcache, cfg):
+    """JAX's cache tree (or its ``cache_shapes``) as the port's list: the
+    superblock stack ``layers.b{i}_{kind}`` indexed by superblock, the
+    remainder blocks ``rem{j}_{kind}``, and whisper's ``cross_k``/
+    ``cross_v`` stacks by layer.  Leaves come back as ``(leaf, index)``."""
+    pat = cfg.block_pattern or ("attn",)
+    n_scanned = cfg.n_layers // len(pat) * len(pat)
+    out = []
+    for i, kind in enumerate(TF.layer_kinds(cfg)):
+        if i < n_scanned:
+            tree = jcache["layers"][f"b{i % len(pat)}_{kind}"]
+            ent = {n: (x, i // len(pat)) for n, x in tree.items()}
+        else:
+            tree = jcache[f"rem{i - n_scanned}_{kind}"]
+            ent = {n: (x, None) for n, x in tree.items()}
+        if cfg.is_enc_dec:
+            ent.update(cross_k=(jcache["cross_k"], i),
+                       cross_v=(jcache["cross_v"], i))
+        out.append(ent)
+    return out
+
+
+def _jax_cache_layers(jcache, cfg):
+    return [{n: x if i is None else x[i] for n, (x, i) in ent.items()}
+            for ent in _jax_layer_entries(jcache, cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -310,29 +353,41 @@ def test_grouped_core_matches_repeated(shape, dtype):
 # the serving path: prefill -> decode_step
 # ---------------------------------------------------------------------------
 
-def _serve_both(arch, S=64, steps=4, B=2, max_seq=64):
-    jcfg = jconfigs.get_config(arch, reduced=True)
-    cfg = configs.get_config(arch, reduced=True)
+def _serve_both(name, S=64, steps=4, B=2, max_seq=64):
+    """Prefill of S seeded tokens then ``steps`` decode steps through both
+    packages.  Whisper's encoder takes seeded frames [B, n_enc_ctx, d]; the
+    ``:patches`` variant prepends seeded patch embeddings [B, F, d] to the
+    text (its cache and positions grow by F)."""
+    cfg, jcfg = _configs(name)
     params, _ = jtf.init_lm(jcfg, jax.random.PRNGKey(7))
     lm = from_jax_params(cfg, jax.tree.map(np.asarray, params), device="cpu")
-    toks = np.random.default_rng(8).integers(
-        0, cfg.vocab_size, (B, S + steps)).astype(np.int32)
-    jc = jtf.init_cache(jcfg, B, max_seq)
-    tc = TF.init_cache(cfg, B, max_seq, device="cpu")
-    jl, jc = jax.jit(lambda p, t, c: jtf.prefill(p, jcfg, t, c))(
-        params, jnp.asarray(toks[:, :S]), jc)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + steps)).astype(np.int32)
+    extra, F = None, 0
+    if cfg.is_enc_dec:
+        extra = rng.standard_normal((B, cfg.n_enc_ctx, cfg.d_model))
+    elif name.endswith(":patches"):
+        F = cfg.n_frontend_tokens
+        extra = rng.standard_normal((B, F, cfg.d_model))
+    if extra is not None:
+        extra = extra.astype(np.float32)
+    jc = jtf.init_cache(jcfg, B, max_seq + F)
+    tc = TF.init_cache(cfg, B, max_seq + F, device="cpu")
+    jl, jc = jax.jit(lambda p, t, c, e: jtf.prefill(p, jcfg, t, c, e))(
+        params, jnp.asarray(toks[:, :S]), jc,
+        None if extra is None else jnp.asarray(extra))
     n0 = FAK.flash_attention_kernel.launches
-    tl, tc = TF.prefill(lm, cfg, torch.as_tensor(toks[:, :S]), tc)
+    tl, tc = TF.prefill(lm, cfg, torch.as_tensor(toks[:, :S]), tc,
+                        None if extra is None else torch.as_tensor(extra))
     assert FAK.flash_attention_kernel.launches == n0    # CPU: plain version
-    out = [(tl, jl, _snapshot(tc), _jax_cache_layers(jc, cfg.n_layers))]
+    out = [(tl, jl, _snapshot(tc), _jax_cache_layers(jc, cfg))]
     dec = jax.jit(lambda p, t, pos, c: jtf.decode_step(p, jcfg, t, pos, c))
     for i in range(steps):
-        pos = np.full((B,), S + i, np.int32)
+        pos = np.full((B,), F + S + i, np.int32)
         jl, jc = dec(params, jnp.asarray(toks[:, S + i]), jnp.asarray(pos), jc)
         tl, tc = TF.decode_step(lm, cfg, torch.as_tensor(toks[:, S + i]),
                                 torch.as_tensor(pos), tc)
-        out.append((tl, jl, _snapshot(tc),
-                    _jax_cache_layers(jc, cfg.n_layers)))
+        out.append((tl, jl, _snapshot(tc), _jax_cache_layers(jc, cfg)))
     return cfg, out
 
 
@@ -371,9 +426,11 @@ def _route_on_jax_inputs(monkeypatch):
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_match_jax_bf16(arch, monkeypatch):
-    """Reduced configs at S = 64 (Danube: window 32 < S, so the prefill
-    merge keeps the ring-aligned tail and decode runs the ring branch).
-    MoE archs route each call on JAX's h2 (``_route_on_jax_inputs``)."""
+    """Reduced configs at S = 64 (Danube and RecurrentGemma: window 32 < S,
+    so the prefill merge keeps the ring-aligned tail and decode runs the
+    ring branch); every cache entry of every layer (K/V slabs, recurrent
+    states and conv windows, whisper's cross K/V) is held.  MoE archs
+    route each call on JAX's h2 (``_route_on_jax_inputs``)."""
     moe = arch in MOE_ARCHS
     if moe:
         flips = _route_on_jax_inputs(monkeypatch)
@@ -381,9 +438,10 @@ def test_prefill_decode_match_jax_bf16(arch, monkeypatch):
     for tl, jl, tc, jc in out:
         assert tl.dtype == torch.bfloat16 and tl.shape == (2, cfg.vocab_size)
         assert_bf16_close(tl, jl)
-        for t, j in zip(tc, jc):
-            assert_bf16_close(t["k"], j["k"])
-            assert_bf16_close(t["v"], j["v"])
+        for t, j in zip(tc, jc, strict=True):
+            assert t.keys() == j.keys()
+            for n in t:
+                assert_bf16_close(t[n], j[n])
     if moe:     # every MoE call of the prefill and the 4 steps was held
         assert len(flips) == cfg.n_layers * len(out)
 
@@ -398,11 +456,11 @@ def test_prefill_decode_match_jax_fp32(arch, monkeypatch):
     for tl, jl, tc, jc in out:
         assert tl.dtype == torch.float32
         np.testing.assert_allclose(tl.numpy(), _np(jl), atol=1e-4, rtol=1e-4)
-        for t, j in zip(tc, jc):
-            np.testing.assert_allclose(t["k"].numpy(), _np(j["k"]),
-                                       atol=1e-4, rtol=1e-4)
-            np.testing.assert_allclose(t["v"].numpy(), _np(j["v"]),
-                                       atol=1e-4, rtol=1e-4)
+        for t, j in zip(tc, jc, strict=True):
+            assert t.keys() == j.keys()
+            for n in t:
+                np.testing.assert_allclose(t[n].numpy(), _np(j[n]),
+                                           atol=1e-4, rtol=1e-4)
 
 
 def test_ring_slab_incongruent_prompt_mirrors_jax(monkeypatch):
@@ -420,11 +478,49 @@ def test_ring_slab_incongruent_prompt_mirrors_jax(monkeypatch):
                                        atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minicpm_2b"])
+@pytest.mark.parametrize("n_frames", [10, 24])
+def test_whisper_frames_other_than_n_enc_ctx_mirror_jax(n_frames,
+                                                         monkeypatch):
+    """ROADMAP R9: the cross K/V slab holds n_enc_ctx (16) frames; a
+    prefill over 10 frames leaves zero rows that decode attends to, one
+    over 24 keeps the last 16.  The port mirrors the reference (fp32)."""
+    monkeypatch.setattr(jtf, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(TF, "COMPUTE_DTYPE", torch.float32)
+    cfg, jcfg = _configs("whisper_base")
+    params, _ = jtf.init_lm(jcfg, jax.random.PRNGKey(7))
+    lm = from_jax_params(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    rng = np.random.default_rng(18)
+    toks = rng.integers(0, cfg.vocab_size, (2, 14)).astype(np.int32)
+    frames = rng.standard_normal((2, n_frames, cfg.d_model)).astype(
+        np.float32)
+    jc, tc = jtf.init_cache(jcfg, 2, 16), TF.init_cache(cfg, 2, 16,
+                                                        device="cpu")
+    jl, jc = jtf.prefill(params, jcfg, jnp.asarray(toks[:, :12]), jc,
+                         jnp.asarray(frames))
+    tl, tc = TF.prefill(lm, cfg, torch.as_tensor(toks[:, :12]), tc,
+                        torch.as_tensor(frames))
+    np.testing.assert_allclose(tl.numpy(), _np(jl), atol=1e-4, rtol=1e-4)
+    for i in range(2):
+        pos = np.full((2,), 12 + i, np.int32)
+        jl, jc = jtf.decode_step(params, jcfg, jnp.asarray(toks[:, 12 + i]),
+                                 jnp.asarray(pos), jc)
+        tl, tc = TF.decode_step(lm, cfg, torch.as_tensor(toks[:, 12 + i]),
+                                torch.as_tensor(pos), tc)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), atol=1e-4,
+                                   rtol=1e-4)
+    for t, j in zip(tc, _jax_cache_layers(jc, cfg)):
+        np.testing.assert_allclose(t["cross_k"].numpy(), _np(j["cross_k"]),
+                                   atol=1e-4, rtol=1e-4)
+    assert bool(tc[0]["cross_k"][:, n_frames:].eq(0).all())
+
+
+@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minicpm_2b"] +
+                         RECURRENT)
 def test_teacher_forced_decode_equals_prefill(arch):
     """In the port alone: decoding a prompt token by token from an empty
-    cache gives the last logits of its prefill (Danube: S = 64 over a
-    window of 32, the ring slab)."""
+    cache gives the last logits of its prefill (Danube and RecurrentGemma:
+    S = 64 over a window of 32, the ring slab; the recurrent states carry
+    the rest)."""
     cfg = configs.get_config(arch, reduced=True)
     lm = TF.init_lm(cfg, 9, device="cpu")
     B, S = 2, 64
@@ -443,44 +539,77 @@ def test_teacher_forced_decode_equals_prefill(arch):
 # shapes, indexing rules, what is not ported
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", SERVED)
+def _port_names(cfg, keys, shape):
+    """{port parameter name: shape} of one leaf of JAX's init_lm tree: a
+    stacked leaf (superblocks ``layers.b{i}_{kind}``, whisper's
+    ``encoder.blocks`` and ``cross``) names one parameter per layer it
+    stacks, a remainder block ``rem{j}_{kind}`` the layer after the
+    superblocks."""
+    pat = cfg.block_pattern or ("attn",)
+    n_super = cfg.n_layers // len(pat)
+    rest = ".".join(keys[2:])
+    if keys[0] == "layers":
+        i = int(keys[1][1:].split("_")[0])
+        return {f"layers.{s * len(pat) + i}.{rest}": shape[1:]
+                for s in range(n_super)}
+    if keys[0].startswith("rem"):
+        j = int(keys[0][3:].split("_")[0])
+        return {f"layers.{n_super * len(pat) + j}." + ".".join(keys[1:]):
+                shape}
+    if keys[:2] == ["encoder", "blocks"]:
+        return {f"encoder.blocks.{i}.{rest}": shape[1:]
+                for i in range(cfg.n_enc_layers)}
+    if keys[0] == "cross":
+        return {f"cross.{i}." + ".".join(keys[1:]): shape[1:]
+                for i in range(cfg.n_layers)}
+    return {".".join(keys): shape}
+
+
+@pytest.mark.parametrize("arch", ALL_CONFIGS)
 def test_full_width_init_shapes_match_jax(arch):
     """init_lm at full width and depth on the meta device has JAX's
-    init_lm tree shapes (``jax.eval_shape``: nothing is allocated)."""
-    cfg = configs.get_config(arch)
-    jcfg = jconfigs.get_config(arch)
+    init_lm tree shapes (``jax.eval_shape``: nothing is allocated), every
+    layer kind, the remainder blocks and whisper's encoder and cross
+    stacks included."""
+    cfg, jcfg = _configs(arch, reduced=False)
     shapes = jax.eval_shape(
         lambda: jtf.init_lm(jcfg, jax.random.PRNGKey(0))[0])
     lm = TF.init_lm(cfg, 0, device="meta")
     own = {n: tuple(p.shape) for n, p in lm.named_parameters()}
     want = {}
     for name, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
-        keys = [k.key for k in name]
-        if keys[0] == "layers":
-            for i in range(cfg.n_layers):
-                want[".".join(["layers", str(i)] + keys[2:])] = \
-                    tuple(leaf.shape[1:])
-        else:
-            want[".".join(keys)] = tuple(leaf.shape)
+        want.update(_port_names(cfg, [k.key for k in name],
+                                tuple(leaf.shape)))
     assert own == want
     n = sum(p.numel() for p in lm.parameters())
+    assert n == sum(leaf.size for leaf in jax.tree.leaves(shapes))
+    assert [b.kind for b in lm.layers] == TF.layer_kinds(cfg)
     if arch == "h2o_danube_3_4b":
         assert lm.layers[0].attn.wq.shape == (3840, 32, 120)
         assert n == cfg.n_params() + (2 * cfg.n_layers + 1) * cfg.d_model
+    if arch == "recurrentgemma_9b":     # 12 x (R, R, A), then R, R
+        assert TF.layer_kinds(cfg)[-3:] == ["attn", "rglru", "rglru"]
+        assert round(n / 1e9, 3) == 9.396
+        assert lm.layers[37].rglru.wa.dtype == torch.float32
+        assert lm.layers[37].rglru.w_main.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", ALL_CONFIGS)
 @pytest.mark.parametrize("max_seq", [16, 64, 8192])
 def test_cache_shapes_match_jax(arch, max_seq):
+    """Each layer's entry has JAX's shapes (a stacked leaf less its stack
+    axis) and dtypes: K/V slabs and conv windows bf16, recurrent states
+    fp32; whisper's cross K/V by layer."""
     for reduced in (True, False):
-        cfg = configs.get_config(arch, reduced=reduced)
-        jcfg = jconfigs.get_config(arch, reduced=reduced)
+        cfg, jcfg = _configs(arch, reduced=reduced)
         own = TF.cache_shapes(cfg, 3, max_seq)
-        want = jtf.cache_shapes(jcfg, 3, max_seq)["layers"]["b0_attn"]
-        assert len(own) == cfg.n_layers
-        for n in "kv":
-            assert (cfg.n_layers,) + own[0][n][0] == want[n][0]
-            assert own[0][n][1] == torch.bfloat16
+        want = _jax_layer_entries(jtf.cache_shapes(jcfg, 3, max_seq), cfg)
+        assert len(own) == len(want) == cfg.n_layers
+        for o, w in zip(own, want):
+            assert o.keys() == w.keys()
+            for n, ((shape, dtype, _), i) in w.items():
+                assert o[n][0] == (shape if i is None else shape[1:])
+                assert str(o[n][1]) == f"torch.{jnp.dtype(dtype).name}"
 
 
 def test_embed_gather_follows_jax_index_rules():
@@ -513,25 +642,34 @@ def test_unembed_masks_vocab_padding_and_scales_like_jax():
     assert_bf16_close(got[..., :250], jnp.asarray(want)[..., :250])
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_configs_raise(arch):
-    cfg = configs.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.init_lm(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_extra_embeds_and_training_raise():
+    """Training raises (ROADMAP queue 1 item 5.5), for every block kind.
+    extra_embeds serve: a VLM prepends them to the text; whisper's encoder
+    needs them and raises without them."""
     cfg = configs.get_config("internvl2_2b", reduced=True)
     lm = TF.init_lm(cfg, 0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.prefill(lm, cfg, toks, TF.init_cache(cfg, 1, 8, device="cpu"),
-                   extra_embeds=torch.zeros((1, 2, cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.apply_block(lm.layers[0], cfg, torch.zeros((1, 4, cfg.d_model)),
-                       torch.arange(4)[None], "train")
+    logits, cache = TF.prefill(lm, cfg, toks,
+                               TF.init_cache(cfg, 1, 8, device="cpu"),
+                               extra_embeds=torch.zeros((1, 2, cfg.d_model)))
+    assert logits.shape == (1, cfg.padded_vocab)
+    # 2 patches then 4 tokens: slots 2..5 hold the text's keys, 6..7 none
+    assert bool(cache[0]["k"][:, 2:6].ne(0).any())
+    assert bool(cache[0]["k"][:, 6:].eq(0).all())
+    wcfg = configs.get_config("whisper_base", reduced=True)
+    wlm = TF.init_lm(wcfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="frames"):
+        TF.prefill(wlm, wcfg, toks, TF.init_cache(wcfg, 1, 8, device="cpu"))
+    for arch in ("internvl2_2b", "recurrentgemma_9b", "mamba2_130m"):
+        cfg = configs.get_config(arch, reduced=True)
+        lm = TF.init_lm(cfg, 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TF.apply_block(lm.layers[0], cfg,
+                           torch.zeros((1, 4, cfg.d_model)),
+                           torch.arange(4)[None], "train")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TF.check_supported(cfg, "train")
+        TF.check_supported(cfg)
 
 
 def test_from_jax_params_rejects_a_mismatched_tree():
@@ -564,6 +702,35 @@ def test_from_jax_params_rejects_a_mismatched_tree():
         from_jax_params(cfg, params, device="cpu")
 
 
+@pytest.mark.parametrize("case", ["rem_leaf", "encoder_leaf", "cross_shape",
+                                  "extra_rem"])
+def test_from_jax_params_rejects_recurrent_and_encoder_mismatch(case):
+    """A missing leaf of a remainder block or of whisper's encoder, a cross
+    stack leaf of the wrong shape, and a remainder block the config does
+    not have, each raise."""
+    arch = "whisper_base" if case.startswith(("encoder", "cross")) else \
+        "recurrentgemma_9b:8L"
+    cfg, jcfg = _configs(arch)
+    params = jax.tree.map(np.asarray,
+                          jtf.init_lm(jcfg, jax.random.PRNGKey(14))[0])
+    from_jax_params(cfg, params, device="cpu")     # the whole tree loads
+    if case == "rem_leaf":
+        del params["rem1_rglru"]["rglru"]["lam"]
+        err, match = KeyError, "lam"
+    elif case == "encoder_leaf":
+        del params["encoder"]["blocks"]["mlp"]["w_up"]
+        err, match = KeyError, "w_up"
+    elif case == "cross_shape":
+        wq = params["cross"]["attn"]["wq"]
+        params["cross"]["attn"]["wq"] = wq[..., :-1]
+        err, match = ValueError, "wq"
+    else:
+        params["rem2_attn"] = params["rem0_rglru"]
+        err, match = KeyError, "rem2_attn"
+    with pytest.raises(err, match=match):
+        from_jax_params(cfg, params, device="cpu")
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -581,6 +748,17 @@ _DEFAULT_DEVICE_CALLS = {
     "MLP": lambda cfg: M.MLP(cfg),
     "MoE": lambda cfg: MOE.MoE(configs.get_config("qwen3_moe_30b_a3b",
                                                   reduced=True)),
+    "RGLRU": lambda cfg: RG.RGLRU(configs.get_config("recurrentgemma_9b",
+                                                     reduced=True)),
+    "SSM": lambda cfg: SSM.SSM(configs.get_config("mamba2_130m",
+                                                  reduced=True)),
+    "Block(ssm)": lambda cfg: TF.Block(configs.get_config("mamba2_130m",
+                                                          reduced=True),
+                                       kind="ssm"),
+    "Encoder": lambda cfg: TF.Encoder(configs.get_config("whisper_base",
+                                                         reduced=True)),
+    "CrossBlock": lambda cfg: TF.CrossBlock(configs.get_config(
+        "whisper_base", reduced=True)),
     "init_norm": lambda cfg: L.init_norm(cfg.norm_type, cfg.d_model),
     "dense_init": lambda cfg: L.dense_init(None, cfg.d_model, cfg.d_ff),
     "embed_init": lambda cfg: L.embed_init(None, cfg.vocab_size,

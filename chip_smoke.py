@@ -172,6 +172,41 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  that must exceed it (an attention layer: one position
                  too far; a recurrent one: the state one token short).
 
+10. train      — (after phase 9, before phase 4) the training path on
+                 MiniCPM-2B (40 layers, d 2304, 36 heads, hd 64, d_ff 5760,
+                 tied 122,880 x 2,304 embedding; muP scalings; WSD as
+                 ``launch/train`` picks it).  Gates (a), (b), (d) at full
+                 width with depth cut to 2 layers, from one seeded fp32
+                 state: (a) 3 steps of ``build_train_step`` at 2 x 128 on
+                 the card against the same steps on the CPU (losses 1e-4
+                 relative, grad norms 1e-4, each parameter's update 5e-2 by
+                 relative norm; control: the last label of each row
+                 ignored on the card must move the loss beyond 1e-4); (b)
+                 ``microbatches`` 2 against 1 (loss 1e-5, grad norm 1e-4;
+                 control: the accumulated gradients not divided by M); (d)
+                 under deterministic algorithms, 3 steps, a save through
+                 ``CheckpointManager`` under ``chiprun_out/``, a restore
+                 into a freshly built state (every tensor bit-equal) and
+                 the next step from both states bit-equal (control: the
+                 restored AdamW step one off must differ).  (e) the whole
+                 model, seeded fp32 masters, 8 steps of 4 x 1024 tokens
+                 through ``launch/train.main`` with every kernel count set
+                 to 0 just before and read just after (0 launches: the
+                 training path reaches no kernel, as the reference's
+                 reaches no Pallas call); every loss and grad norm finite
+                 and the loss of step 7 below step 0's; per-step loss,
+                 grad norm and lr, step ms (median of steps 2-7), tokens/s,
+                 the step's FLOP bound and the share of it reached, peak
+                 memory, state bytes, the device idle share of one more,
+                 profiled, step and the device ms of the step's parts
+                 (the bf16 copy, one ``adamw_update``).  (c) layer 0's q, k, v of (e)'s
+                 first step through ``attention_core`` (the training
+                 attention) against the flash kernel, 1e-2 by row
+                 (control: each query's own key dropped).
+
+``--train`` runs only the build of ``flash_attention`` and phase 10, and
+prints no result line.
+
 ``--hext-matrix`` runs only the hext columns that phase 4 leaves out (the
 long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
 all nine, up to 118,264 ticks), each held to the goldens, and prints no
@@ -200,6 +235,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -334,6 +370,32 @@ REC_FLASH_LAUNCHES = {"recurrentgemma_9b": 12, "mamba2_130m": 0,
 SCAN_TOL = 1e-4
 SSD_RAGGED_S = 8100                # 126 chunks of 64 + 36: zero-dt padding
 FP32_PEAK_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+
+# train: MiniCPM-2B (src/repro/configs/minicpm_2b.py), the config the
+# reference's launch/train.py docstring trains.  Gates (a), (b), (d) at
+# full width with depth cut to 2 layers (~405 M parameters), batch 2 x 128
+# of SyntheticLMData, the schedule launch/train picks (WSD: scale_depth)
+TRAIN_ARCH = "minicpm_2b"
+TRAIN_CUT_LAYERS = 2
+TRAIN_GATE_B, TRAIN_GATE_S, TRAIN_GATE_STEPS = 2, 128, 3
+# (e) full width and depth: 8 steps of 4 x 1024 tokens through
+# launch/train.main, lr 3e-4, WSD, remat "dots" (the config's default)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 3e-4
+# (a) card against the port's CPU path from one seeded fp32 state.  The
+# loss tolerance must stay below what its control moves the loss by (the
+# last label of each of the 2 rows ignored: 2.915e-4 relative on this
+# batch), so it is 1e-4 (the card read 3.835e-5); grad norms 1e-4 (read
+# 7.743e-6); each parameter's 3-step update by relative norm 5e-2 (read
+# 3.932e-2: Adam's first steps are ~±lr by the sign of each gradient
+# element, and bf16 GEMMs summed in another order flip the sign of a few
+# near-zero ones).  Readings on an H100 80GB HBM3 at 700 W
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GN_TOL = 1e-4
+TRAIN_UPDATE_TOL = 5e-2
+# (b) microbatches 2 against 1 on the same batch (read 6.9e-8 / 5.2e-7;
+# the control, gradients not divided by M, reads 1.0)
+MICRO_LOSS_TOL = 1e-5
+MICRO_GN_TOL = 1e-4
 
 
 def phase(name: str, **kv) -> None:
@@ -3083,6 +3145,412 @@ def recurrent_phase(torch, np, dev, flash_log: str) -> dict:
             "rg_path_ms": times[REC_RUNS[0][1]]["ms"]}
 
 
+# ---------------------------------------------------------------------------
+# train: the training path (MiniCPM-2B)
+# ---------------------------------------------------------------------------
+
+def train_state_copy(torch, cfg, p0, dev, moments_from=None):
+    """A training state on ``dev`` holding the fp32 masters ``p0`` (a dict
+    of CPU tensors) and a zero AdamW state (or a copy of
+    ``moments_from``'s)."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import AdamWState, adamw_init
+
+    lm = TF.LM(cfg, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            p.copy_(p0[n])
+    opt = adamw_init(dict(lm.named_parameters()))
+    if moments_from is not None:
+        opt = AdamWState(step=moments_from.step.clone(),
+                         m={k: x.clone() for k, x in moments_from.m.items()},
+                         v={k: x.clone() for k, x in moments_from.v.items()})
+    return lm, opt
+
+
+def rel_norm(torch, got, want) -> float:
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+def max_update_err(torch, lm, want_lm, p0) -> float:
+    """Max over parameters of ||(p - p0) - (q - p0)|| / ||q - p0|| (the
+    CPU's ``want_lm`` gives q)."""
+    want = dict(want_lm.named_parameters())
+    worst = 0.0
+    for n, p in lm.named_parameters():
+        du = p.detach().cpu() - p0[n]
+        dw = want[n].detach() - p0[n]
+        worst = max(worst, rel_norm(torch, du, dw))
+    return worst
+
+
+def loss_only(torch, cfg, lm, batch) -> float:
+    """The loss of ``batch`` on ``lm``'s compute copy (the train step's
+    forward), no update."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.weights import jax_ranks
+    from repro_torch.runtime.train_loop import _cast_params, to_device
+
+    dev = next(lm.parameters()).device
+    pb = _cast_params(dict(lm.named_parameters()), torch.bfloat16,
+                      jax_ranks(cfg, lm))
+    with torch.no_grad():
+        loss, _ = torch.func.functional_call(
+            lm, pb, (lambda m, b: TF.loss_fn(m, cfg, b),
+                     to_device(batch, dev)))
+    return float(loss)
+
+
+def train_gates_abd(torch, dev) -> dict:
+    """Gates (a), (b) and (d) on MiniCPM-2B at full width, 2 layers."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import schedule
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.sharding import single_device_policy
+    from repro_torch.runtime.train_loop import (build_train_step,
+                                                init_train_state)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    t0 = time.perf_counter()
+    lm, opt = init_train_state(cfg, SEED, device=dev)
+    p0 = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    phase("train", gate="setup", arch=cfg.name, layers=cfg.n_layers,
+          params=sum(x.numel() for x in p0.values()),
+          init_s=f"{time.perf_counter() - t0:.2f}")
+    sched = schedule(cfg, TRAIN_LR, TRAIN_GATE_STEPS)
+    step_fn = build_train_step(cfg, single_device_policy(), sched)
+    data = SyntheticLMData(cfg, TRAIN_GATE_B, TRAIN_GATE_S)
+    out = {}
+
+    # ---- (a) the card against the port's CPU path -------------------------
+    t0 = time.perf_counter()
+    cpu_lm, cpu_opt = train_state_copy(torch, cfg, p0, "cpu")
+    ctrl_batch = data.batch_at(0)
+    ctrl_batch["labels"] = ctrl_batch["labels"].copy()
+    ctrl_batch["labels"][:, -1] = -1
+    ctrl_loss = loss_only(torch, cfg, lm, ctrl_batch)
+    card, cpu = [], []
+    for step in range(TRAIN_GATE_STEPS):
+        lm, opt, m = step_fn(lm, opt, data.batch_at(step), step)
+        cpu_lm, cpu_opt, cm = step_fn(cpu_lm, cpu_opt, data.batch_at(step),
+                                      step)
+        card.append({k: float(v) for k, v in m.items()})
+        cpu.append({k: float(v) for k, v in cm.items()})
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(card, cpu))
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(card, cpu))
+    upd_err = max_update_err(torch, lm, cpu_lm, p0)
+    ctrl_err = abs(ctrl_loss - cpu[0]["loss"]) / abs(cpu[0]["loss"])
+    phase("train", gate="(a) card vs CPU, 3 steps",
+          card_losses=[f"{c['loss']:.6f}" for c in card],
+          cpu_losses=[f"{c['loss']:.6f}" for c in cpu],
+          grad_norms=[f"{c['grad_norm']:.5f}" for c in card],
+          lr=[f"{c['lr']:.3e}" for c in card])
+    phase("train", gate="(a)", loss_rel_err=f"{loss_err:.3e}",
+          tol=TRAIN_LOSS_TOL, grad_norm_rel_err=f"{gn_err:.3e}",
+          gn_tol=TRAIN_GN_TOL, max_update_rel_err=f"{upd_err:.3e}",
+          update_tol=TRAIN_UPDATE_TOL,
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    phase("train", gate="(a) control: last label of each row ignored on "
+          "the card", loss_rel_err=f"{ctrl_err:.3e}",
+          must_exceed=TRAIN_LOSS_TOL)
+    if not (loss_err <= TRAIN_LOSS_TOL and gn_err <= TRAIN_GN_TOL and
+            upd_err <= TRAIN_UPDATE_TOL):
+        raise RuntimeError("train (a): the card's steps differ from the "
+                           "CPU's beyond tolerance")
+    if not ctrl_err > TRAIN_LOSS_TOL:
+        raise RuntimeError(f"train (a): the loss tolerance cannot see two "
+                           f"ignored labels ({ctrl_err:.3e})")
+    out["card_vs_cpu"] = dict(loss=loss_err, grad_norm=gn_err,
+                              update=upd_err, control=ctrl_err)
+    del cpu_lm, cpu_opt, lm, opt
+
+    # ---- (b) microbatches 2 against 1 --------------------------------------
+    def one_step(M, average=None):
+        lm, opt = train_state_copy(torch, cfg, p0, dev)
+        fn = build_train_step(cfg, single_device_policy(microbatches=M),
+                              sched)
+        with (patched(train_loop, "_average", average) if average
+              else contextlib.nullcontext()):
+            _, _, m = fn(lm, opt, data.batch_at(0), 0)
+        return {k: float(v) for k, v in m.items()}
+
+    m1, m2 = one_step(1), one_step(2)
+    ctrl = one_step(2, lambda grads, loss, M: (grads, loss / M))
+    micro = (abs(m2["loss"] - m1["loss"]) / m1["loss"],
+             abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"])
+    micro_ctrl = abs(ctrl["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    phase("train", gate="(b) microbatches 2 vs 1",
+          loss=f"{m2['loss']:.6f}/{m1['loss']:.6f}",
+          loss_rel_err=f"{micro[0]:.3e}", tol=MICRO_LOSS_TOL,
+          grad_norm=f"{m2['grad_norm']:.5f}/{m1['grad_norm']:.5f}",
+          grad_norm_rel_err=f"{micro[1]:.3e}", gn_tol=MICRO_GN_TOL)
+    phase("train", gate="(b) control: gradients not divided by M",
+          grad_norm_rel_err=f"{micro_ctrl:.3e}", must_exceed=MICRO_GN_TOL)
+    if not (micro[0] <= MICRO_LOSS_TOL and micro[1] <= MICRO_GN_TOL):
+        raise RuntimeError("train (b): microbatches 2 differ from 1")
+    if not micro_ctrl > MICRO_GN_TOL:
+        raise RuntimeError("train (b): the control was not seen")
+    out["microbatch"] = dict(loss=micro[0], grad_norm=micro[1],
+                             control=micro_ctrl)
+
+    # ---- (d) checkpoint and determinism --------------------------------------
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    ckdir = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=out_dir))
+    torch.use_deterministic_algorithms(True)
+    try:
+        lm, opt = train_state_copy(torch, cfg, p0, dev)
+        for step in range(TRAIN_GATE_STEPS):
+            lm, opt, _ = step_fn(lm, opt, data.batch_at(step), step)
+        live = {"params": dict(lm.named_parameters()), "opt": opt}
+        mgr = CheckpointManager(str(ckdir), every=0)
+        mgr.maybe_save(TRAIN_GATE_STEPS - 1, live, force=True)
+        mgr.finalize()
+        fresh_lm, fresh_opt = init_train_state(cfg, SEED + 1, device=dev)
+        fresh = {"params": dict(fresh_lm.named_parameters()),
+                 "opt": fresh_opt}
+        fresh, start = mgr.restore_or_init(lambda: fresh)
+        restored_equal = all(torch.equal(a, b) for a, b in zip(
+            tensors(live), tensors(fresh)))
+        nxt = data.batch_at(TRAIN_GATE_STEPS)
+        _, _, lm_m = step_fn(lm, opt, nxt, TRAIN_GATE_STEPS)
+        _, _, re_m = step_fn(fresh_lm, fresh["opt"], nxt, TRAIN_GATE_STEPS)
+        next_equal = (all(torch.equal(a, b) for a, b in zip(
+            tensors(live), tensors(fresh)))
+            and all(torch.equal(lm_m[k], re_m[k]) for k in lm_m))
+        # control: restore again, the AdamW step one off
+        fresh = mgr.restore_or_init(lambda: fresh)[0]
+        off = fresh["opt"]._replace(step=fresh["opt"].step - 1)
+        step_fn(fresh_lm, off, nxt, TRAIN_GATE_STEPS)
+        ctrl_equal = all(torch.equal(a, b) for a, b in zip(
+            lm.parameters(), fresh_lm.parameters()))
+        del fresh, fresh_lm, fresh_opt, live
+    finally:
+        torch.use_deterministic_algorithms(False)
+        import shutil
+        shutil.rmtree(ckdir, ignore_errors=True)
+    phase("train", gate="(d) checkpoint after step 2, restore, step 3",
+          start_step=start, restored_bit_equal=restored_equal,
+          next_step_bit_equal=next_equal,
+          control_step_one_off_bit_equal=ctrl_equal,
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    if not (restored_equal and next_equal and start == TRAIN_GATE_STEPS - 1):
+        raise RuntimeError("train (d): the restored state or its next step "
+                           "is not bit-equal to the live one")
+    if ctrl_equal:
+        raise RuntimeError("train (d): the control (AdamW step one off) "
+                           "was not seen")
+    return out
+
+
+def time_once(torch, fn) -> float:
+    """Device milliseconds of one call of ``fn`` by a CUDA event pair
+    (after one untimed call)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def tensors(state):
+    """The tensors of a training state {"params": ..., "opt": AdamWState},
+    in a fixed order."""
+    opt = state["opt"]
+    return ([state["params"][k] for k in sorted(state["params"])]
+            + [opt.step] + [opt.m[k] for k in sorted(opt.m)]
+            + [opt.v[k] for k in sorted(opt.v)])
+
+
+def train_flop_bound(torch, cfg, n_params, B, S) -> dict:
+    """The least time of a train step of B x S tokens: 6 flops a
+    parameter and token (forward and backward; the tied table as the
+    unembedding's product) plus 3 x the causal attention's forward, 4 * hd
+    flops per visible (query, key) pair and head, at the bf16 peak."""
+    pairs = S * (S + 1) // 2
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.n_heads * B * pairs \
+        * cfg.n_layers
+    flops = 6 * n_params * B * S + attn
+    return dict(flops=flops, bound_s=flops / BF16_PEAK_FLOPS)
+
+
+def train_phase(torch, np, dev) -> dict:
+    """The training path: gates (a), (b), (d) at 2 layers, then (e) the
+    whole MiniCPM-2B through ``launch/train.main`` with every kernel count
+    read around it, then (c) on (e)'s layer-0 q, k, v.  Returns the
+    launch counts of (e)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import schedule
+    from repro_torch.models import attention as AT
+    from repro_torch.models.weights import jax_ranks
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.runtime.sharding import single_device_policy
+    from repro_torch.runtime.train_loop import _cast_params, build_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train", allocated_at_start_gb=
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f}")
+    gates = train_gates_abd(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) full width and depth through launch/train --------------------
+    cfg = get_config(TRAIN_ARCH)
+    rec = {"t": [], "metrics": [], "state": None, "qkv": None}
+
+    def on_step(step, lm, opt, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["state"] = (lm, opt)
+
+    core = AT.attention_core
+
+    def capture_first(q, k, v, mask, scale, attn_softcap=0.0):
+        if rec["qkv"] is None:
+            rec["qkv"] = tuple(x.detach().clone() for x in (q, k, v))
+        return core(q, k, v, mask, scale, attn_softcap)
+
+    counts = (FAK.flash_attention_kernel, PAK.paged_attention_kernel,
+              PWK.two_stage_translate_kernel)
+    args = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+            "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with patched(AT, "attention_core", capture_first):
+        losses = launch_train.main(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": counts[0].launches,
+                "paged_attention": counts[1].launches,
+                "pagewalk": counts[2].launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    lm, opt = rec["state"]
+    n_params = sum(p.numel() for p in lm.parameters())
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      list(lm.parameters()) + list(opt.m.values())
+                      + list(opt.v.values()))
+    step_bytes = state_bytes + 2 * 2 * n_params   # + bf16 copy and grads
+    met = rec["metrics"]
+    for i, m in enumerate(met):
+        phase("train", gate="(e)", step=i, loss=f"{m['loss']:.4f}",
+              grad_norm=f"{m['grad_norm']:.4f}", lr=f"{m['lr']:.3e}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(rec["t"], rec["t"][1:])]
+    steady = statistics.median(step_ms[1:])     # steps 2..7
+    bound = train_flop_bound(torch, cfg, n_params, TRAIN_B, TRAIN_S)
+    phase("train", gate="(e) MiniCPM-2B full width and depth",
+          layers=cfg.n_layers, params=n_params, remat=cfg.remat,
+          tokens_per_step=TRAIN_B * TRAIN_S, wall_s=f"{wall:.2f}",
+          first_step_ms=f"{(rec['t'][0] - t0) * 1e3:.1f}",
+          step_ms_median_2_7=f"{steady:.2f}",
+          step_ms_min_max=f"{min(step_ms[1:]):.2f}/{max(step_ms[1:]):.2f}",
+          tokens_per_s=f"{TRAIN_B * TRAIN_S / steady * 1e3:.0f}",
+          flops_per_step=f"{bound['flops']:.4e}",
+          bound_ms=f"{bound['bound_s'] * 1e3:.2f}",
+          share_of_bound=f"{bound['bound_s'] * 1e3 / steady:.4f}",
+          peak_mem_gb=f"{peak / 1e9:.2f}",
+          masters_and_moments_gb=f"{state_bytes / 1e9:.2f}",
+          with_bf16_copy_and_grads_gb=f"{step_bytes / 1e9:.2f}")
+    phase("train", gate="(e) kernel launches on the training path",
+          **launches)
+    finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                 for m in met)
+    if not finite or not met[-1]["loss"] < met[0]["loss"] or \
+            losses != [m["loss"] for m in met]:
+        raise RuntimeError(f"train (e): losses {losses} (finite: {finite})")
+    if any(launches.values()):
+        raise RuntimeError(f"train (e): the training path launched "
+                           f"{launches}; it reaches no kernel")
+
+    # one more step, profiled: the device idle share
+    step_fn = build_train_step(cfg, single_device_policy(),
+                               schedule(cfg, TRAIN_LR, TRAIN_STEPS))
+    from repro_torch.data.pipeline import SyntheticLMData
+    batch = SyntheticLMData(cfg, TRAIN_B, TRAIN_S).batch_at(TRAIN_STEPS)
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: step_fn(lm, opt, batch, TRAIN_STEPS), top_n=8)
+    if busy_ms is None:
+        phase("train", gate="(e) profiled step",
+              device_idle_share="not measured",
+              profiled_step_ms=f"{prof_ms:.1f}")
+    else:
+        # idle against the unprofiled step (the median) and, for
+        # reference, against the profiled step's own wall
+        phase("train", gate="(e) profiled step",
+              device_busy_ms=f"{busy_ms:.1f}",
+              device_idle_share=f"{1.0 - busy_ms / steady:.4f}",
+              profiled_step_ms=f"{prof_ms:.1f}",
+              idle_share_of_profiled_step=f"{1.0 - busy_ms / prof_ms:.4f}")
+    phase("train", top_kernels=top)
+    # the step's parts by CUDA events: the bf16 copy, one AdamW update (on
+    # bf16 gradients of zero; the state is not used again)
+    params = dict(lm.named_parameters())
+    ranks = jax_ranks(cfg, lm)
+    cast_ms = time_once(torch, lambda: _cast_params(params, torch.bfloat16,
+                                                    ranks))
+    grads = {k: torch.zeros_like(p, dtype=torch.bfloat16)
+             for k, p in params.items()}
+    adamw_ms = time_once(torch, lambda: adamw_update(
+        params, grads, opt, TRAIN_LR, ranks=ranks))
+    del grads, params
+    phase("train", gate="(e) parts of the step", cast_ms=f"{cast_ms:.2f}",
+          adamw_update_ms=f"{adamw_ms:.2f}",
+          adamw_byte_bound_ms=f"{26 * n_params / HBM_BYTES_PER_S * 1e3:.2f}",
+          rest_of_step_ms=f"{steady - cast_ms - adamw_ms:.2f}")
+    rec["state"] = None
+    del lm, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the training attention against the kernel --------------------
+    q, k, v = rec["qkv"]
+    scale = cfg.resolved_head_dim ** -0.5
+    pos = torch.arange(q.shape[1], device=dev)
+    mask = AT._causal_mask(pos, pos, cfg.window)[None, None]
+    want = AT.attention_core(q, k, v, mask, scale)
+    got = FAK.flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), scale, 0)
+    short = own_key_dropped(FAK, got, q, k, v, scale)
+    rel = rel_rows(torch, got, want)
+    ctrl = rel_rows(torch, short, want)
+    phase("train", gate="(c) layer 0 attention_core vs flash kernel",
+          shape=list(q.shape), kv_heads=k.shape[2],
+          max_abs_err=f"{float((got.float() - want.float()).abs().max()):.3e}",
+          max_row_rel_err=f"{rel:.3e}", row_rel_tol=BF16_ROW_REL_TOL)
+    phase("train", gate="(c) control: each query's own key dropped",
+          max_row_rel_err=f"{ctrl:.3e}", must_exceed=BF16_ROW_REL_TOL)
+    if not rel <= BF16_ROW_REL_TOL:
+        raise RuntimeError(f"train (c): attention_core and the kernel "
+                           f"differ by {rel:.3e} by row")
+    if not ctrl > BF16_ROW_REL_TOL:
+        raise RuntimeError("train (c): the control was not seen")
+    phase("train", phase_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def walk_times(torch, np, dev, smi: str) -> int:
     """``--walk-times``: only the pagewalk timings of phases 3 and 5 (the
     table sweep and its decomposition; the consumers' shapes and the
@@ -3113,6 +3581,9 @@ def main(argv=None) -> int:
     ap.add_argument("--recurrent", action="store_true",
                     help="only the build and the recurrent phase (no "
                     "other phase, no result line)")
+    ap.add_argument("--train", action="store_true",
+                    help="only the build and the train phase (no other "
+                    "phase, no result line)")
     ap.add_argument("--serve", action="store_true",
                     help="only the 16-submission serve trace through the "
                     "port's service (no other phase, no result line)")
@@ -3120,6 +3591,9 @@ def main(argv=None) -> int:
                     help="the src directory whose repro_torch is run (so "
                     "two checkouts can be timed in turns in one call)")
     args = ap.parse_args(argv)
+    # the train phase's deterministic gate needs cuBLAS's fixed workspace,
+    # which is read when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -3149,6 +3623,15 @@ def main(argv=None) -> int:
         phase("build", kernel="flash_attention",
               seconds=f"{info['seconds']:.2f}")
         recurrent_phase(torch, np, dev, info["log"])
+        print(smi, flush=True)
+        return 0
+    if args.train:
+        phase("train", torch=torch.__version__)
+        print(smi, flush=True)
+        info = build.compile_source("flash_attention")
+        phase("build", kernel="flash_attention",
+              seconds=f"{info['seconds']:.2f}")
+        train_phase(torch, np, dev)
         print(smi, flush=True)
         return 0
     if args.serve:
@@ -3194,6 +3677,12 @@ def main(argv=None) -> int:
                  recurrentgemma_plain_ms=rec["rg"]["plain_ms"],
                  recurrentgemma_library_ms=rec["rg"]["library_ms"])
     kernels = [walk, attention, flash]
+    torch.cuda.empty_cache()
+    # the training path's launches of each kernel (0: it reaches none)
+    train_launches = train_phase(torch, np, dev)
+    for entry, name in zip(kernels, ("pagewalk", "paged_attention",
+                                     "flash_attention")):
+        entry["train_launches"] = train_launches[name]
     torch.cuda.empty_cache()
     # last: after CUDA graphs were captured and traced in a process, a
     # later trace of the pagewalk calls there held no spin kernels

@@ -1,6 +1,10 @@
 """GQA / MQA / MHA attention with full + sliding-window masking.
 
-Entry points sharing one weight set (training is not ported yet):
+Entry points sharing one weight set:
+  attn_train    — causal (optionally windowed) self-attention over a full
+                  sequence, through ``attention_core`` as JAX's
+                  ``attn_train`` is (the kernel is forward only, and JAX
+                  trains through XLA's autodiff of the plain product)
   attn_prefill  — causal self-attention over a whole prompt, also returns
                   the K/V cache slab; through the flash-attention kernel
                   (``kernels/flash_attention``) unless ``attn_softcap``
@@ -112,6 +116,19 @@ def attention_core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
 
 def _out_proj(p: Attention, cfg: ModelConfig, out):
     return torch.matmul(out.flatten(-2), p.wo.to(out.dtype).flatten(0, 1))
+
+
+def attn_train(p: Attention, cfg: ModelConfig, x, positions, window=None):
+    """x [B,S,D], positions [B,S] (or [1,S]) → [B,S,D].  Causal, with
+    ``cfg.window`` (or ``window``) as a sliding window."""
+    w = cfg.window if window is None else window
+    q, k, v = _project_qkv(p, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    mask = _causal_mask(positions, positions, w)[:, None]   # [B,1,S,T]
+    out = attention_core(q, k, v, mask, cfg.resolved_head_dim ** -0.5,
+                         cfg.attn_softcap)
+    return _out_proj(p, cfg, out)
 
 
 def attn_prefill(p: Attention, cfg: ModelConfig, x, positions):

@@ -91,13 +91,15 @@ def linear_scan(a, b):
     """All prefixes of h_t = a_t·h_{t-1} + b_t (h_{-1} = 0) along dim 1:
     a Hillis–Steele scan, ceil(log2 S) rounds of the associative combine
     (a1, b1) ∘ (a2, b2) = (a1·a2, b1·a2 + b2) at distance 1, 2, 4, ..."""
-    a, b = a.clone(), b.clone()
     S, d = a.shape[1], 1
     while d < S:
-        b_tail = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
+        # each round is written out of place, so autograd can run
+        # backward through it (an in-place round overwrites what the
+        # previous round saved)
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:],
+                                               b[:, :-d])], dim=1)
         if 2 * d < S:       # the last round needs no product of a
-            a[:, d:] = a[:, d:] * a[:, :-d]
-        b[:, d:] = b_tail
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
 

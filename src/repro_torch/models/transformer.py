@@ -1,6 +1,7 @@
 """Model assembly: decoder-only LMs (dense, MoE, hybrid RG-LRU, SSM), the
-whisper encoder-decoder and a VLM with a stub frontend — the serving path
-(prefill and decode over a cache).
+whisper encoder-decoder and a VLM with a stub frontend — training
+(``forward_train``, ``lm_loss``, ``loss_fn``) and serving (prefill and
+decode over a cache).
 
 The JAX package stacks its layers into superblocks (one period of
 ``cfg.block_pattern``) and scans them, then applies the remainder layers
@@ -15,23 +16,35 @@ and, for whisper, each layer's entry also holds its cross-attention
 "cross_k"/"cross_v" [B,n_enc_ctx,KV,hd] (JAX's [L,B,...] stack, a layer
 at a time).  ``prefill`` and ``decode_step`` write it in place.
 
-Computation is in bf16 (``COMPUTE_DTYPE``) with the projection and
-embedding weights (expert weights too) held in bf16, which is
+Computation is in bf16 (``COMPUTE_DTYPE``).  A serving model holds the
+projection and embedding weights (expert weights too) in bf16, which is
 bit-identical to the JAX package's fp32 weights cast at every use; norm
 weights, the MoE router and the weights JAX uses in fp32 (the RG-LRU
-gates, the SSM's A, dt bias, D and norm) stay fp32.  An MoE config's
-blocks hold ``moe`` (``models/moe.py``) in place of ``mlp``, as JAX's do;
-serving drops the MoE aux loss.
+gates, the SSM's A, dt bias, D and norm) stay fp32.  A training model
+(``init_lm(..., dtype=torch.float32)``) holds every weight in fp32, as
+JAX's ``init_lm`` does; the train step (``runtime/train_loop.py``) runs
+``loss_fn`` on a bf16 copy of it through ``torch.func.functional_call``
+(``LM.forward``).  An MoE config's blocks hold ``moe``
+(``models/moe.py``) in place of ``mlp``, as JAX's do; training adds its
+aux loss to the loss, serving drops it.
 
-Not ported yet: training (``apply_block`` and ``check_supported`` raise
-``NotImplementedError`` for it; ROADMAP queue 1 item 5.5).
+Remat (training only) follows ``cfg.remat`` over each superblock, as
+JAX's ``_maybe_remat``: ``"none"``; ``"full"`` recomputes the whole
+superblock in the backward; ``"dots"`` (JAX's
+``dots_with_no_batch_dims_saveable``) keeps the outputs of the
+projections (``aten.mm``/``addmm``) and recomputes the rest, the
+attention and MoE batched products (``aten.bmm``) included.  Remat
+changes memory only, never a number.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -46,9 +59,8 @@ from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
                                        param, sinusoidal_positions)
 
 COMPUTE_DTYPE = torch.bfloat16
-NOT_PORTED = "not ported yet (ROADMAP queue 1 item 5)"
 KINDS = ("attn", "rglru", "ssm")
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -63,10 +75,10 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_supported(cfg: ModelConfig, mode: str = "prefill") -> None:
-    """Raises ``NotImplementedError`` for training (the one mode the port
-    does not run) and ``ValueError`` for a block kind JAX has none of."""
+    """Raises ``ValueError`` for a mode other than ``MODES`` and for a
+    block kind JAX has none of."""
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r}: training is {NOT_PORTED}")
+        raise ValueError(f"mode {mode!r}: not one of {MODES}")
     unknown = sorted(set(_pattern(cfg)) - set(KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
@@ -79,50 +91,55 @@ def check_supported(cfg: ModelConfig, mode: str = "prefill") -> None:
 class Block(nn.Module):
     """One layer, as JAX's ``init_block`` makes it: ``attn`` (norm1, attn,
     norm2, and ``moe`` for an MoE config or a dense ``mlp``), ``rglru``
-    (norm1, rglru, norm2, mlp) or ``ssm`` (norm1, ssm)."""
+    (norm1, rglru, norm2, mlp) or ``ssm`` (norm1, ssm).  The weights the
+    compute casts at every use are held in ``dtype`` (default
+    ``COMPUTE_DTYPE``)."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None,
-                 kind: str = "attn"):
+                 kind: str = "attn", dtype=None):
         super().__init__()
         device = resolve(device)
+        dtype = dtype or COMPUTE_DTYPE
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
         self.kind = kind
         self.norm1 = init_norm(cfg.norm_type, cfg.d_model, device)
         if kind == "ssm":
-            self.ssm = ssm_mod.SSM(cfg, generator, COMPUTE_DTYPE, device)
+            self.ssm = ssm_mod.SSM(cfg, generator, dtype, device)
             return
         if kind == "attn":
-            self.attn = attn_mod.Attention(cfg, generator, COMPUTE_DTYPE,
-                                           device)
+            self.attn = attn_mod.Attention(cfg, generator, dtype, device)
         else:
-            self.rglru = rglru_mod.RGLRU(cfg, generator, COMPUTE_DTYPE,
-                                         device)
+            self.rglru = rglru_mod.RGLRU(cfg, generator, dtype, device)
         self.norm2 = init_norm(cfg.norm_type, cfg.d_model, device)
         if kind == "attn" and cfg.moe.n_experts:
-            self.moe = moe_mod.MoE(cfg, generator, COMPUTE_DTYPE, device)
+            self.moe = moe_mod.MoE(cfg, generator, dtype, device)
         else:
-            self.mlp = mlp_mod.MLP(cfg, generator, COMPUTE_DTYPE, device)
+            self.mlp = mlp_mod.MLP(cfg, generator, dtype, device)
 
 
 class EncoderBlock(nn.Module):
     """A whisper encoder layer: norm1, attn (bidirectional), norm2, mlp."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None,
+                 dtype=None):
         super().__init__()
         device = resolve(device)
+        dtype = dtype or COMPUTE_DTYPE
         self.norm1 = init_norm(cfg.norm_type, cfg.d_model, device)
-        self.attn = attn_mod.Attention(cfg, generator, COMPUTE_DTYPE, device)
+        self.attn = attn_mod.Attention(cfg, generator, dtype, device)
         self.norm2 = init_norm(cfg.norm_type, cfg.d_model, device)
-        self.mlp = mlp_mod.MLP(cfg, generator, COMPUTE_DTYPE, device)
+        self.mlp = mlp_mod.MLP(cfg, generator, dtype, device)
 
 
 class Encoder(nn.Module):
     """``cfg.n_enc_layers`` encoder ``blocks`` and a ``final_norm``."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None,
+                 dtype=None):
         super().__init__()
-        self.blocks = nn.ModuleList([EncoderBlock(cfg, generator, device)
+        self.blocks = nn.ModuleList([EncoderBlock(cfg, generator, device,
+                                                  dtype)
                                      for _ in range(cfg.n_enc_layers)])
         self.final_norm = init_norm(cfg.norm_type, cfg.d_model,
                                     resolve(device))
@@ -131,11 +148,13 @@ class Encoder(nn.Module):
 class CrossBlock(nn.Module):
     """A whisper decoder layer's cross attention: norm, attn (no bias)."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None,
+                 dtype=None):
         super().__init__()
         device = resolve(device)
+        dtype = dtype or COMPUTE_DTYPE
         self.norm = init_norm(cfg.norm_type, cfg.d_model, device)
-        self.attn = attn_mod.Attention(cfg, generator, COMPUTE_DTYPE, device,
+        self.attn = attn_mod.Attention(cfg, generator, dtype, device,
                                        cross=True)
 
 
@@ -144,28 +163,42 @@ class LM(nn.Module):
     final_norm, and ``cfg.n_layers`` blocks in JAX's layer order; an
     encoder-decoder config also has ``encoder`` and one ``cross`` block a
     layer.  On ``device`` (default ``cuda``).  With no generator the
-    weights are left uninitialised (to be loaded)."""
+    weights are left uninitialised (to be loaded).  ``dtype`` is that of
+    the weights the compute casts at every use: ``COMPUTE_DTYPE`` (bf16)
+    by default, to serve; fp32 for a training model (every weight fp32,
+    JAX's ``init_lm``)."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None,
+                 dtype=None):
         super().__init__()
         check_supported(cfg)
         device = resolve(device)
-        V, d, dt = cfg.padded_vocab, cfg.d_model, COMPUTE_DTYPE
-        self.embed = param(embed_init(generator, V, d, dt, device))
+        dtype = dtype or COMPUTE_DTYPE
+        V, d = cfg.padded_vocab, cfg.d_model
+        self.embed = param(embed_init(generator, V, d, dtype, device))
         if not cfg.tie_embeddings:
-            self.lm_head = param(embed_init(generator, V, d, dt, device))
+            self.lm_head = param(embed_init(generator, V, d, dtype, device))
         self.final_norm = init_norm(cfg.norm_type, d, device)
         self.layers = nn.ModuleList(
-            [Block(cfg, generator, device, kind)
+            [Block(cfg, generator, device, kind, dtype)
              for kind in layer_kinds(cfg)])
         if cfg.is_enc_dec:
-            self.encoder = Encoder(cfg, generator, device)
-            self.cross = nn.ModuleList([CrossBlock(cfg, generator, device)
+            self.encoder = Encoder(cfg, generator, device, dtype)
+            self.cross = nn.ModuleList([CrossBlock(cfg, generator, device,
+                                                   dtype)
                                         for _ in range(cfg.n_layers)])
 
+    def forward(self, fn, *args):
+        """``fn(self, *args)``: so ``torch.func.functional_call`` can run
+        any function of the model (``loss_fn``) with other tensors in
+        place of its weights (the train step's bf16 copy)."""
+        return fn(self, *args)
 
-def init_lm(cfg: ModelConfig, generator, device=None) -> LM:
-    """Seeded weights of ``cfg`` on ``device`` (default ``cuda``).
+
+def init_lm(cfg: ModelConfig, generator, device=None,
+            dtype=None) -> LM:
+    """Seeded weights of ``cfg`` on ``device`` (default ``cuda``), those
+    the compute casts in ``dtype`` (``torch.float32`` for training).
     ``generator`` is a ``torch.Generator`` of that device or an int seed;
     on the ``meta`` device only the shapes are made."""
     dev = resolve(device)
@@ -174,7 +207,7 @@ def init_lm(cfg: ModelConfig, generator, device=None) -> LM:
     elif isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=dev)
         generator.manual_seed(seed)
-    return LM(cfg, generator, device=dev)
+    return LM(cfg, generator, device=dev, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -189,22 +222,30 @@ def _res_scale(cfg: ModelConfig):
 
 def apply_block(p: Block, cfg: ModelConfig, x, positions, mode: str,
                 cache=None, pos=None):
-    """mode: prefill | decode.  Returns (x, new_cache): an ``attn`` block's
-    K/V (in decode, the cache slabs written in place), a recurrent block's
-    state ``h`` and conv window ``conv`` (new tensors)."""
+    """mode: train | prefill | decode.  Returns (x, new_cache, aux_loss):
+    the cache entry is an ``attn`` block's K/V (in decode, the cache slabs
+    written in place) or a recurrent block's state ``h`` and conv window
+    ``conv`` (new tensors), and None in training; the aux loss is an MoE
+    block's load-balance loss (an fp32 scalar), else the number 0.0 (no
+    launch on the serving path)."""
     check_supported(cfg, mode)
     rs = _res_scale(cfg)
+    aux = 0.0
+    new_cache = None
     h = apply_norm(cfg.norm_type, p.norm1, x, cfg.norm_eps)
     # "inner" hook: under SP the carry is seq-sharded for memory; gather the
     # activation here (cheap) so TP weights stay sharded inside the block
     h = activation_sharding.constrain(h, "inner")
     if p.kind == "attn":
-        if mode == "prefill":
+        if mode == "train":
+            a = attn_mod.attn_train(p.attn, cfg, h, positions)
+        elif mode == "prefill":
             a, (k, v) = attn_mod.attn_prefill(p.attn, cfg, h, positions)
+            new_cache = {"k": k, "v": v}
         else:
             a, k, v = attn_mod.attn_decode(p.attn, cfg, h, cache["k"],
                                            cache["v"], pos)
-        new_cache = {"k": k, "v": v}
+            new_cache = {"k": k, "v": v}
     else:
         h0 = cache["h"] if cache is not None else None
         cs = cache["conv"] if cache is not None else None
@@ -212,17 +253,18 @@ def apply_block(p: Block, cfg: ModelConfig, x, positions, mode: str,
                  else ssm_mod.apply_ssm)
         a, (hn, csn) = apply(getattr(p, p.kind), cfg, h, h0=h0,
                              conv_state=cs, decode=(mode == "decode"))
-        new_cache = {"h": hn, "conv": csn}
+        if mode != "train":
+            new_cache = {"h": hn, "conv": csn}
         if p.kind == "ssm":
-            return x + rs * a, new_cache
+            return x + rs * a, new_cache, aux
     x = x + rs * a
     h2 = apply_norm(cfg.norm_type, p.norm2, x, cfg.norm_eps)
     h2 = activation_sharding.constrain(h2, "inner")
     if hasattr(p, "moe"):
-        m, _ = moe_mod.apply_moe(p.moe, cfg, h2)
+        m, aux = moe_mod.apply_moe(p.moe, cfg, h2)
     else:
         m = mlp_mod.apply_mlp(p.mlp, cfg, h2)
-    return x + rs * m, new_cache
+    return x + rs * m, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +305,77 @@ def unembed(params: LM, cfg: ModelConfig, x):
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=x.device))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def forward_train(params: LM, cfg: ModelConfig, tokens, extra_embeds=None):
+    """tokens [B,S] (+ optional frontend embeds [B,F,D]) → (logits
+    [B,S(+F),V], aux loss).  ``extra_embeds``: a VLM's patch embeddings
+    (prepended) or whisper's frame embeddings (the encoder's input)."""
+    check_supported(cfg, "train")
+    x = embed_tokens(params, cfg, tokens)
+    if extra_embeds is not None:
+        extra_embeds = torch.as_tensor(extra_embeds, device=x.device)
+    if cfg.is_enc_dec:
+        if extra_embeds is None:
+            raise ValueError(f"{cfg.name}: the encoder needs its frames "
+                             f"(extra_embeds)")
+        enc_out = _encode(params, cfg, extra_embeds)
+        S = x.shape[1]
+        x = x + sinusoidal_positions(S, cfg.d_model,
+                                     x.device).to(x.dtype)[None]
+        positions = torch.arange(S, device=x.device)[None, :]
+        x, aux = _run_blocks_with_cross(params, cfg, x, positions, enc_out,
+                                        "train")
+    else:
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, aux = _run_blocks(params, cfg, x, positions, "train")
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return unembed(params, cfg, x), aux
+
+
+def lm_loss(logits, labels, z_loss: float = 1e-4):
+    """Masked cross entropy plus ``z_loss`` · lse², in fp32, over the
+    positions whose label is >= 0, with the row max held out of the
+    gradient as JAX's ``stop_gradient``.  The label's logit is picked by
+    a select over the vocabulary, as JAX's iota-select (exact either way;
+    the select has no scatter in its backward, so it is deterministic on
+    the card); a label past the vocabulary picks 0, as there."""
+    mask = (labels >= 0).float()
+    labels = labels.clamp(min=0)
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    vocab = torch.arange(lf.shape[-1], device=lf.device)
+    picked = torch.where(vocab == labels[..., None], shifted,
+                         0.0).sum(dim=-1)
+    ll = picked + m[..., 0]
+    ce = (lse - ll) * mask
+    zl = z_loss * torch.square(lse) * mask
+    denom = mask.sum().clamp(min=1.0)
+    return (ce.sum() + zl.sum()) / denom
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch):
+    """batch: {"tokens": [B,S], "labels": [B,S], optional "frames" or
+    "patches"} (tensors on the model's device) → (loss, {"ce", "aux"}).
+    A VLM's logits are cut to the text positions; an MoE config adds
+    ``aux_loss_weight`` · aux."""
+    extra = batch.get("frames", batch.get("patches"))
+    logits, aux = forward_train(params, cfg, batch["tokens"],
+                                extra_embeds=extra)
+    if extra is not None and not cfg.is_enc_dec:
+        logits = logits[:, extra.shape[1]:]
+    loss = lm_loss(logits, batch["labels"])
+    if cfg.moe.n_experts:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -337,20 +450,67 @@ def _store(layer_cache: dict, fresh: dict, mode: str) -> None:
             layer_cache[n].copy_(x)
 
 
+# ---------------------------------------------------------------------------
+# Remat policy
+# ---------------------------------------------------------------------------
+
+# the products JAX's dots_with_no_batch_dims_saveable keeps: a projection
+# ([B,S,D] @ [D,N] reaches the dispatcher as aten.mm); batched products
+# (aten.bmm: attention, the MoE experts) are recomputed
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat`` (module docstring).  The backward
+    recomputes through the model's weights as they are then, so it must
+    run while the train step's copy is in place (``train_loop`` takes
+    the gradients inside ``functional_call``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat != "dots":
+        raise ValueError(f"remat {cfg.remat!r}: not none|dots|full")
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
 def _run_blocks(params: LM, cfg: ModelConfig, x, positions, mode: str,
-                cache, pos=None):
-    """The layers in order, each writing its cache entry; the "block" hook
-    at each superblock boundary."""
+                cache=None, pos=None):
+    """The layers in order: the superblocks (one period of the pattern;
+    the "block" hook at each one's start and, in training, ``cfg.remat``
+    over each), then the remainder blocks; each serving block writes its
+    cache entry.  Returns (x, aux loss: the sum of the blocks', 0.0 with
+    no MoE block)."""
     period = len(_pattern(cfg))
     n_scanned = cfg.n_layers // period * period
-    for i, blk in enumerate(params.layers):
-        if i % period == 0 and i < n_scanned:
-            x = activation_sharding.constrain(x)
-        x, fresh = apply_block(blk, cfg, x, positions, mode,
-                               cache=cache[i] if mode == "decode" else None,
-                               pos=pos)
-        _store(cache[i], fresh, mode)
-    return x
+
+    def run(x, aux, first, last):
+        for i in range(first, last):
+            x, fresh, a = apply_block(
+                params.layers[i], cfg, x, positions, mode,
+                cache=cache[i] if mode == "decode" else None, pos=pos)
+            aux = aux + a
+            if fresh is not None:
+                _store(cache[i], fresh, mode)
+        return x, aux
+
+    aux = 0.0
+    for first in range(0, n_scanned, period):
+        x = activation_sharding.constrain(x)
+        body = functools.partial(run, first=first, last=first + period)
+        if mode == "train":
+            body = _maybe_remat(body, cfg)
+        x, aux = body(x, aux)
+    return run(x, aux, n_scanned, cfg.n_layers)
 
 
 def _encode(params: LM, cfg: ModelConfig, frames):
@@ -370,25 +530,33 @@ def _encode(params: LM, cfg: ModelConfig, frames):
 
 
 def _run_blocks_with_cross(params: LM, cfg: ModelConfig, x, positions,
-                           enc_out, mode: str, cache, pos=None):
+                           enc_out, mode: str, cache=None, pos=None):
     """Whisper decoder: each layer's self-attention block, then its cross
     attention against the encoder's K/V (computed from ``enc_out`` in
-    prefill and kept in the cache; read from it in decode)."""
-    for i, (blk, cp) in enumerate(zip(params.layers, params.cross,
-                                      strict=True)):
-        if mode == "prefill":
-            ck, cv = attn_mod.cross_kv(cp.attn, cfg, enc_out)
-        else:
-            ck, cv = cache[i]["cross_k"], cache[i]["cross_v"]
-        x, fresh = apply_block(blk, cfg, x, positions, mode,
-                               cache=cache[i] if mode == "decode" else None,
-                               pos=pos)
+    training and prefill, where prefill keeps them in the cache; read
+    from it in decode).  In training each layer runs under ``cfg.remat``,
+    its cross K/V outside it, as JAX's.  Returns (x, aux loss)."""
+    def layer(x, aux, i, ck, cv):
+        x, fresh, a = apply_block(
+            params.layers[i], cfg, x, positions, mode,
+            cache=cache[i] if mode == "decode" else None, pos=pos)
         if mode == "prefill":
             fresh.update(cross_k=ck, cross_v=cv)
-        _store(cache[i], fresh, mode)
+        if fresh is not None:
+            _store(cache[i], fresh, mode)
+        cp = params.cross[i]
         h = apply_norm(cfg.norm_type, cp.norm, x, cfg.norm_eps)
-        x = x + attn_mod.cross_attend(cp.attn, cfg, h, ck, cv)
-    return x
+        return x + attn_mod.cross_attend(cp.attn, cfg, h, ck, cv), aux + a
+
+    body = _maybe_remat(layer, cfg) if mode == "train" else layer
+    aux = 0.0
+    for i, cp in enumerate(params.cross):
+        if mode == "decode":
+            ck, cv = cache[i]["cross_k"], cache[i]["cross_v"]
+        else:
+            ck, cv = attn_mod.cross_kv(cp.attn, cfg, enc_out)
+        x, aux = body(x, aux, i, ck, cv)
+    return x, aux
 
 
 @torch.no_grad()
@@ -413,10 +581,10 @@ def prefill(params: LM, cfg: ModelConfig, tokens, cache, extra_embeds=None):
         enc_out = _encode(params, cfg, extra_embeds)
         x = x + sinusoidal_positions(S, cfg.d_model,
                                      x.device).to(x.dtype)[None]
-        x = _run_blocks_with_cross(params, cfg, x, positions, enc_out,
-                                   "prefill", cache)
+        x, _ = _run_blocks_with_cross(params, cfg, x, positions, enc_out,
+                                      "prefill", cache)
     else:
-        x = _run_blocks(params, cfg, x, positions, "prefill", cache)
+        x, _ = _run_blocks(params, cfg, x, positions, "prefill", cache)
     logits = unembed(params, cfg, x[:, -1:])
     return logits[:, 0], cache
 
@@ -431,9 +599,9 @@ def decode_step(params: LM, cfg: ModelConfig, token, pos, cache):
     if cfg.is_enc_dec:
         table = sinusoidal_positions(cfg.max_seq, cfg.d_model, x.device)
         x = x + take(table.to(x.dtype), pos)[:, None]
-        x = _run_blocks_with_cross(params, cfg, x, positions, None,
-                                   "decode", cache, pos)
+        x, _ = _run_blocks_with_cross(params, cfg, x, positions, None,
+                                      "decode", cache, pos)
     else:
-        x = _run_blocks(params, cfg, x, positions, "decode", cache, pos)
+        x, _ = _run_blocks(params, cfg, x, positions, "decode", cache, pos)
     logits = unembed(params, cfg, x)
     return logits[:, 0], cache

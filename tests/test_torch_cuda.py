@@ -10,8 +10,8 @@ card; and the fleet operations on the graph engine (a 32-case torture
 corpus against the oracle, a migration, ``replace_hart`` with no new
 graph, and the service's long-workload park/resume and N=3 shed cases);
 and the MoE block and a reduced MoE LM on the card against the CPU; and
-the reduced recurrent, state-space, encoder-decoder and frontend LMs.
-This file imports no JAX, so it runs where only PyTorch is installed:
+the reduced recurrent, state-space, encoder-decoder and frontend LMs;
+and one train step of every reduced config.  This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import decode as D
 from repro_torch.core.hext import engine as E
@@ -725,6 +725,43 @@ def test_recurrent_and_enc_dec_lm_on_card_matches_cpu(cuda, arch):
             x, y = lc[n].float().flatten(1), lg[n].float().cpu().flatten(1)
             assert float((y - x).norm() / x.norm()) <= 2e-2, n
     assert FAK.flash_attention_kernel.launches == n0 + n_attn
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``build_train_step`` step of each reduced config (batch 2 x 32
+    of ``SyntheticLMData``; whisper's frames, InternVL2's patches) from
+    one seeded fp32 state on the card and on the CPU: the loss within
+    5e-3 relative and the grad norm within 5e-2 (bf16 products summed in
+    another order; an MoE config may route a near-tied token otherwise),
+    every updated parameter finite, and no kernel launched (the training
+    attention is ``attention_core``)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.runtime.sharding import single_device_policy
+    from repro_torch.runtime.train_loop import (build_train_step,
+                                                init_train_state)
+
+    cfg = get_config(arch, reduced=True)
+    step = build_train_step(cfg, single_device_policy(),
+                            cosine_schedule(1e-3, 0, 10))
+    batch = SyntheticLMData(cfg, 2, 32, seed=3).batch_at(0)
+    lm_cpu, opt_cpu = init_train_state(cfg, 5, device="cpu")
+    lm_gpu, opt_gpu = init_train_state(cfg, 5, device="cpu")
+    lm_gpu = lm_gpu.to(cuda)
+    opt_gpu = opt_gpu._replace(
+        step=opt_gpu.step.to(cuda),
+        m={k: x.to(cuda) for k, x in opt_gpu.m.items()},
+        v={k: x.to(cuda) for k, x in opt_gpu.v.items()})
+    n0 = FAK.flash_attention_kernel.launches
+    _, _, a = step(lm_cpu, opt_cpu, batch, 0)
+    _, _, b = step(lm_gpu, opt_gpu, batch, 0)
+    assert FAK.flash_attention_kernel.launches == n0
+    assert abs(float(b["loss"]) - float(a["loss"])) <= \
+        5e-3 * abs(float(a["loss"]))
+    assert abs(float(b["grad_norm"]) - float(a["grad_norm"])) <= \
+        5e-2 * float(a["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in lm_gpu.parameters())
 
 
 def _row_close(got, want, elem=2e-2, row=1e-2):

@@ -46,6 +46,7 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as TF
 from repro_torch.models.weights import from_jax_params, load_tree
+from repro_torch.runtime.train_loop import init_train_state
 
 DENSE = ["h2o_danube_3_4b", "minicpm_2b", "qwen15_32b", "nemotron_4_340b",
          "internvl2_2b"]
@@ -643,9 +644,11 @@ def test_unembed_masks_vocab_padding_and_scales_like_jax():
 
 
 def test_extra_embeds_and_training_raise():
-    """Training raises (ROADMAP queue 1 item 5.5), for every block kind.
-    extra_embeds serve: a VLM prepends them to the text; whisper's encoder
-    needs them and raises without them."""
+    """A mode other than train/prefill/decode raises, for every block
+    kind, and training runs (``tests/test_torch_train.py`` holds it
+    against JAX).  extra_embeds serve: a VLM prepends them to the text;
+    whisper's encoder needs them and raises without them, in prefill and
+    in training."""
     cfg = configs.get_config("internvl2_2b", reduced=True)
     lm = TF.init_lm(cfg, 0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
@@ -660,16 +663,24 @@ def test_extra_embeds_and_training_raise():
     wlm = TF.init_lm(wcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="frames"):
         TF.prefill(wlm, wcfg, toks, TF.init_cache(wcfg, 1, 8, device="cpu"))
+    with pytest.raises(ValueError, match="frames"):
+        TF.forward_train(wlm, wcfg, toks)
     for arch in ("internvl2_2b", "recurrentgemma_9b", "mamba2_130m"):
         cfg = configs.get_config(arch, reduced=True)
         lm = TF.init_lm(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mode 'serve'"):
             TF.apply_block(lm.layers[0], cfg,
                            torch.zeros((1, 4, cfg.d_model)),
-                           torch.arange(4)[None], "train")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.check_supported(cfg, "train")
-        TF.check_supported(cfg)
+                           torch.arange(4)[None], "serve")
+        with pytest.raises(ValueError, match="mode 'serve'"):
+            TF.check_supported(cfg, "serve")
+        x, cache, aux = TF.apply_block(lm.layers[0], cfg,
+                                       torch.zeros((1, 4, cfg.d_model)),
+                                       torch.arange(4)[None], "train")
+        assert x.shape == (1, 4, cfg.d_model) and cache is None
+        assert float(aux) == 0.0
+        for mode in TF.MODES:
+            TF.check_supported(cfg, mode)
 
 
 def test_from_jax_params_rejects_a_mismatched_tree():
@@ -766,6 +777,8 @@ _DEFAULT_DEVICE_CALLS = {
     "rope_freqs": lambda cfg: L.rope_freqs(cfg.resolved_head_dim, 1e4),
     "sinusoidal_positions": lambda cfg: L.sinusoidal_positions(8, 16),
     "from_jax_params": lambda cfg: from_jax_params(cfg, {}),
+    "init_lm(float32)": lambda cfg: TF.init_lm(cfg, 0, dtype=torch.float32),
+    "init_train_state": lambda cfg: init_train_state(cfg, 0),
 }
 
 

@@ -204,8 +204,44 @@ Phases, one line each; any failure raises and the script exits non-zero:
                  attention) against the flash kernel, 1e-2 by row
                  (control: each query's own key dropped).
 
+11. mesh       — (after phase 10, before phase 4) the mesh half on a
+                 world-size-1 nccl group (a ``HashStore``) and
+                 ``launch/mesh.make_host_mesh()``: (a) 3 steps of
+                 MiniCPM-2B at full width, 2 layers, 2 x 128 through the
+                 DTensor step (``grad_shardings``, the state placed by
+                 ``tree_shardings``/``opt_state_specs``) and through
+                 today's step from one seeded state, under deterministic
+                 algorithms: loss, grad norm and every parameter
+                 bit-equal (else the train phase's card-vs-CPU
+                 tolerances, the parameters that differ named),
+                 control: the DTensor step
+                 at 2 x lr must differ; (b) the whole MiniCPM-2B, 3 steps
+                 of 4 x 1024 through ``launch/train.main([..., "--mesh",
+                 "host"])`` with the kernel counts read around it (0):
+                 step ms, tokens/s, the peak memory of steps 1-2, the
+                 idle share of a profiled step, beside phase 10's plain
+                 path; (e) ``launch/analytic``'s FLOPs and bytes beside
+                 this script's own bounds (not a gate); then, with the
+                 group destroyed, the records of ``launch/dryrun.run_cell``
+                 in one subprocess a cell (one default process group a
+                 process, all started together at a lower priority, in the
+                 default run before the train phase): (c) (b)'s cell
+                 on a fake world of 1, whose live bytes a device must be
+                 within 20 % of (b)'s measured peak, and (d) ``minicpm_2b train_4k`` and
+                 ``qwen3_moe_30b_a3b decode_32k`` on (16, 16),
+                 ``h2o_danube_3_4b prefill_32k`` on (2, 16, 16) (through
+                 flash's fake binding), each ``ok``, with bytes a
+                 device, the roofline terms, the dominant one, the
+                 collectives by kind and the cell's wall.
+
 ``--train`` runs only the build of ``flash_attention`` and phase 10, and
 prints no result line.
+
+``--mesh`` runs only phase 11 and prints no result line.
+
+``--serving`` runs only the build of ``flash_attention`` and the serving
+phases (model, moe, recurrent), and prints no result line; with ``--src``
+two checkouts' serving paths can be timed in turns in one call.
 
 ``--hext-matrix`` runs only the hext columns that phase 4 leaves out (the
 long four's 1guest-preempt, and the 2guest- and 4guest-preempt columns of
@@ -396,6 +432,22 @@ TRAIN_UPDATE_TOL = 5e-2
 # the control, gradients not divided by M, reads 1.0)
 MICRO_LOSS_TOL = 1e-5
 MICRO_GN_TOL = 1e-4
+# the train phase's (e) numbers, for the mesh phase to print beside its own
+TRAIN_PLAIN = {}
+
+# mesh: the mesh half (runtime/sharding placements, the DTensor train
+# step with grad_shardings, restore onto shardings, launch/dryrun) on a
+# world-size-1 nccl group (a HashStore) and make_host_mesh(), and the dry
+# run on the fake process group in subprocesses.  (a) at the train phase's
+# gate size; (b) at (e)'s cell through launch/train --mesh host
+MESH_STEPS = 3
+# (c) the dry run's live bytes a device against (b)'s measured peak
+MESH_DRY_TOL = 0.20
+# (d) production-mesh cells: (arch, shape, multi_pod)
+MESH_CELLS = (("minicpm_2b", "train_4k", False),
+              ("qwen3_moe_30b_a3b", "decode_32k", False),
+              ("h2o_danube_3_4b", "prefill_32k", True))
+MESH_DRY_TIMEOUT_S = 600
 
 
 def phase(name: str, **kv) -> None:
@@ -525,14 +577,18 @@ def call_ops(torch, fns: dict) -> dict:
       and the next one (the span's own annotation on the device's
       timeline is not one).
 
-    The trace is taken up to three times, until it holds device events.
+    The trace is taken up to five times, until it holds device events
+    with one spin before each call and one after the last: CUPTI now and
+    then drops a device event from a trace (a spin went missing in one
+    run on the H100), and a trace with a spin missing cannot be split
+    into calls.  Each call's checks are made on a whole trace only.
     """
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             for k, fn in enumerate(fns.values()):
                 torch.cuda._sleep(1000)
@@ -544,8 +600,11 @@ def call_ops(torch, fns: dict) -> dict:
                          if e.device_type == torch.autograd.DeviceType.CUDA
                          and not e.name.startswith("smoke_call_")),
                         key=lambda e: e.time_range.start)
-        if events:
+        spins = sum("spin_kernel" in e.name for e in events)
+        if events and spins == len(fns) + 1:
             break
+        phase("vmem", call_ops_retrace=f"{len(events)} device events, "
+              f"{spins} spins for {len(fns)} calls")
     spans = {e.name: e for e in prof.events()
              if e.name.startswith("smoke_call_") and
              e.device_type == torch.autograd.DeviceType.CPU}
@@ -3476,6 +3535,8 @@ def train_phase(torch, np, dev) -> dict:
           with_bf16_copy_and_grads_gb=f"{step_bytes / 1e9:.2f}")
     phase("train", gate="(e) kernel launches on the training path",
           **launches)
+    TRAIN_PLAIN.update(step_ms=steady, peak_gb=peak / 1e9,
+                       tokens_per_s=TRAIN_B * TRAIN_S / steady * 1e3)
     finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                  for m in met)
     if not finite or not met[-1]["loss"] < met[0]["loss"] or \
@@ -3551,6 +3612,373 @@ def train_phase(torch, np, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# mesh: the mesh half on the card (world size 1) and on the fake world
+# ---------------------------------------------------------------------------
+
+def mesh_gate_a(torch, dev, mesh) -> dict:
+    """(a) the DTensor step on ``mesh`` against today's step, 3 steps of
+    MiniCPM-2B at full width, 2 layers, 2 x 128, from one seeded state,
+    under deterministic algorithms: loss, grad norm and every parameter
+    bit-equal; control: the DTensor step at twice the lr must differ."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.sharding import single_device_policy
+    from repro_torch.runtime.train_loop import (build_train_step,
+                                                init_train_state)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    data = SyntheticLMData(cfg, TRAIN_GATE_B, TRAIN_GATE_S)
+
+    def on_mesh(lr):
+        lm, opt = init_train_state(cfg, SEED, device=dev)
+        pol, psh, opt, place = launch_train.on_mesh(cfg, mesh, 1, lm, opt)
+        fn = build_train_step(cfg, pol, launch_train.schedule(
+            cfg, lr, MESH_STEPS), grad_shardings=psh)
+        return lm, opt, fn, place
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, popt = init_train_state(cfg, SEED, device=dev)
+        pfn = build_train_step(cfg, single_device_policy(),
+                               launch_train.schedule(cfg, TRAIN_LR,
+                                                     MESH_STEPS))
+        lm, opt, fn, place = on_mesh(TRAIN_LR)
+        placed = {n: [str(p) for p in x.placements]
+                  for n, x in list(lm.named_parameters())[:2]}
+        rows = []
+        for step in range(MESH_STEPS):
+            batch = data.batch_at(step)
+            plain, popt, pm = pfn(plain, popt, batch, step)
+            lm, opt, mm = fn(lm, opt, place(batch), step)
+            rows.append((float(pm["loss"]), float(mm["loss"]),
+                         float(pm["grad_norm"]), float(mm["grad_norm"])))
+        want = dict(plain.named_parameters())
+        diff = {}
+        for n, p in lm.named_parameters():
+            got = p.to_local()
+            if not torch.equal(got, want[n]):
+                diff[n] = float((got.double() - want[n].double()).norm()
+                                / want[n].double().norm().clamp_min(1e-30))
+        metrics_equal = all(a == b and c == d for a, b, c, d in rows)
+        steps_equal = all(torch.equal(opt.m[n].to_local(), popt.m[n])
+                          for n in popt.m)
+        del lm, opt, fn
+        clm, copt, cfn, cplace = on_mesh(2 * TRAIN_LR)
+        for step in range(MESH_STEPS):
+            clm, copt, _ = cfn(clm, copt, cplace(data.batch_at(step)), step)
+        ctrl_equal = all(torch.equal(p.to_local(), want[n])
+                         for n, p in clm.named_parameters())
+        del clm, copt, cfn, plain, popt, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bit_equal = metrics_equal and steps_equal and not diff
+    phase("mesh", gate="(a) DTensor step on make_host_mesh() vs today's "
+          "step", arch=cfg.name, layers=cfg.n_layers,
+          batch=f"{TRAIN_GATE_B}x{TRAIN_GATE_S}", steps=MESH_STEPS,
+          placements_of_first_two=placed,
+          losses=[f"{a:.6f}/{b:.6f}" for a, b, _, _ in rows],
+          grad_norms=[f"{c:.6f}/{d:.6f}" for _, _, c, d in rows],
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    phase("mesh", gate="(a)", loss_and_grad_norm_bit_equal=metrics_equal,
+          every_parameter_bit_equal=not diff, moments_bit_equal=steps_equal,
+          params_differing=len(diff),
+          worst=(max(diff.items(), key=lambda kv: kv[1]) if diff else None))
+    phase("mesh", gate="(a) control: the DTensor step at 2 x lr",
+          bit_equal=ctrl_equal, must_be=False)
+    if ctrl_equal:
+        raise RuntimeError("mesh (a): the control (2 x lr) was not seen")
+    if not bit_equal:
+        loss_err = max(abs(b - a) / abs(a) for a, b, _, _ in rows)
+        gn_err = max(abs(d - c) / c for _, _, c, d in rows)
+        upd = max(diff.values(), default=0.0)
+        phase("mesh", gate="(a) not bit-equal: the train phase's tolerances",
+              loss_rel_err=f"{loss_err:.3e}", tol=TRAIN_LOSS_TOL,
+              grad_norm_rel_err=f"{gn_err:.3e}", gn_tol=TRAIN_GN_TOL,
+              max_param_rel_err=f"{upd:.3e}", update_tol=TRAIN_UPDATE_TOL)
+        if not (loss_err <= TRAIN_LOSS_TOL and gn_err <= TRAIN_GN_TOL and
+                upd <= TRAIN_UPDATE_TOL):
+            raise RuntimeError("mesh (a): the DTensor step differs from "
+                               "today's beyond the train phase's tolerances")
+    return {"bit_equal": bit_equal}
+
+
+def mesh_full(torch, np, dev) -> dict:
+    """(b) MiniCPM-2B at full width and depth, (e)'s cell (4 x 1024,
+    remat "dots"), 3 steps through ``launch/train.main(["--mesh",
+    "host"])``: step ms, tokens/s, peak memory of steps 1-2 (after the
+    state is placed), the idle share of one more, profiled, step; the
+    kernel counts read around it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels.flash_attention import kernel as FAK
+    from repro_torch.kernels.paged_attention import kernel as PAK
+    from repro_torch.kernels.pagewalk import kernel as PWK
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.sharding import default_policy
+    from repro_torch.runtime.train_loop import build_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    rec = {"t": [], "metrics": [], "state": None}
+
+    def on_step(step, lm, opt, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["state"] = (lm, opt)
+        if step == 0:       # the steps' peak, not the placing's
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    counts = (FAK.flash_attention_kernel, PAK.paged_attention_kernel,
+              PWK.two_stage_translate_kernel)
+    for c in counts:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launch_train.main(["--arch", TRAIN_ARCH, "--steps", str(MESH_STEPS),
+                       "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                       "--lr", str(TRAIN_LR), "--log-every", "1",
+                       "--mesh", "host"], on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": counts[0].launches,
+                "paged_attention": counts[1].launches,
+                "pagewalk": counts[2].launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [(b - a) * 1e3 for a, b in zip(rec["t"], rec["t"][1:])]
+    met = rec["metrics"]
+    lm, opt = rec["state"]
+    mesh = next(lm.parameters()).device_mesh
+    psh = {n: list(p.placements) for n, p in lm.named_parameters()}
+    pol = default_policy(mesh)
+    fn = build_train_step(cfg, pol, launch_train.schedule(
+        cfg, TRAIN_LR, MESH_STEPS), grad_shardings=psh)
+    from torch.distributed.tensor import distribute_tensor
+    batch = {k: distribute_tensor(torch.as_tensor(x.astype(np.int64),
+                                                  device=dev), mesh,
+                                  pol.shard(mesh, ("dp", None), x.shape))
+             for k, x in SyntheticLMData(cfg, TRAIN_B, TRAIN_S).batch_at(
+                 MESH_STEPS).items()}
+    busy_ms, prof_ms, top = device_busy(
+        torch, lambda: fn(lm, opt, batch, MESH_STEPS), top_n=8)
+    steady = statistics.median(step_ms)
+    out = dict(step_ms=steady, peak=peak,
+               tokens_per_s=TRAIN_B * TRAIN_S / steady * 1e3)
+    phase("mesh", gate="(b) MiniCPM-2B full width and depth, launch/train "
+          "--mesh host", layers=cfg.n_layers, remat=cfg.remat,
+          tokens_per_step=TRAIN_B * TRAIN_S, wall_s=f"{wall:.2f}",
+          losses=[f"{m['loss']:.4f}" for m in met],
+          first_step_ms=f"{(rec['t'][0] - t0) * 1e3:.1f}",
+          step_ms_steps_1_2=[f"{x:.2f}" for x in step_ms],
+          tokens_per_s=f"{out['tokens_per_s']:.0f}",
+          peak_mem_gb_steps_1_2=f"{peak / 1e9:.2f}",
+          device_busy_ms=("not measured" if busy_ms is None
+                          else f"{busy_ms:.1f}"),
+          device_idle_share=("not measured" if busy_ms is None
+                             else f"{1.0 - busy_ms / steady:.4f}"),
+          profiled_step_ms=f"{prof_ms:.1f}")
+    phase("mesh", gate="(b) beside the plain path, this run (train (e))",
+          plain_step_ms=(f"{TRAIN_PLAIN['step_ms']:.2f}" if TRAIN_PLAIN
+                         else "not run"),
+          plain_peak_gb=(f"{TRAIN_PLAIN['peak_gb']:.2f}" if TRAIN_PLAIN
+                         else "not run"),
+          recorded_plain="884.98-937.36 ms, 56.33 GB")
+    phase("mesh", top_kernels=top)
+    phase("mesh", gate="(b) kernel launches on the mesh path", **launches)
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               for m in met):
+        raise RuntimeError(f"mesh (b): losses {met}")
+    if any(launches.values()):
+        raise RuntimeError(f"mesh (b): the mesh path launched {launches}")
+    rec["state"] = None
+    del lm, opt, fn, batch
+    out["launches"] = launches
+    return out
+
+
+MESH_DRY_SCRIPT = r"""
+import json, sys
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+arch, shape, multi_pod, cut, out = sys.argv[1:6]
+kw = {}
+if cut == "card":   # (c): the card's (b) cell on a fake world of 1
+    kw = dict(mesh_shape=(1, 1), microbatches=1,
+              shape=ShapeConfig(shape, "train", int(sys.argv[7]),
+                                int(sys.argv[6])))
+rec = dryrun.run_cell(arch, shape, multi_pod == "1", device="cuda", **kw)
+json.dump(rec, open(out, "w"))
+"""
+
+
+def start_dry_runs(src: str) -> dict:
+    """(c) and (d): ``launch/dryrun.run_cell`` of (b)'s cell on a fake
+    world of 1 and of the ``MESH_CELLS`` on the production meshes, each in
+    a subprocess of its own (one default process group a process), all
+    started together, at a lower priority: they trace on the host only,
+    so the default run starts them before the train phase and the card's
+    phases go on meanwhile.  ``join_dry_runs`` collects them."""
+    out_dir = ROOT / "chiprun_out" / "mesh_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    jobs = [(TRAIN_ARCH, "train_4k", False, "card")] + \
+        [(a, s, mp, "") for a, s, mp in MESH_CELLS]
+    procs = []
+    for i, (arch, shape, mp, cut) in enumerate(jobs):
+        path = out_dir / f"{i}_{arch}__{shape}.json"
+        with open(path.with_suffix(".log"), "w") as log:
+            p = subprocess.Popen(
+                [sys.executable, "-c", MESH_DRY_SCRIPT, arch, shape,
+                 str(int(mp)), cut or "-", str(path), str(TRAIN_B),
+                 str(TRAIN_S)], env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        os.setpriority(os.PRIO_PROCESS, p.pid, 10)
+        procs.append((path, p))
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def stop_dry_runs(runs: dict) -> None:
+    """Kill whatever of ``runs`` still runs."""
+    for _, p in runs["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def join_dry_runs(runs: dict) -> list:
+    """The records of ``start_dry_runs``' cells, (c)'s first; each cell
+    must end within ``MESH_DRY_TIMEOUT_S`` of the start."""
+    recs = []
+    for path, p in runs["procs"]:
+        left = MESH_DRY_TIMEOUT_S - (time.perf_counter() - runs["t0"])
+        try:
+            p.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            stop_dry_runs(runs)
+            raise RuntimeError(f"mesh: a dry-run cell ran past "
+                               f"{MESH_DRY_TIMEOUT_S} s")
+        if p.returncode != 0:
+            stop_dry_runs(runs)
+            err = path.with_suffix(".log").read_text()
+            raise RuntimeError(f"mesh: dry-run subprocess failed: "
+                               f"{err[-2000:]}")
+        recs.append(json.loads(path.read_text()))
+    return recs
+
+
+def mesh_bounds(torch) -> None:
+    """(e) the dry run's analytic model beside this script's own bounds
+    at (b)'s cell (4 x 1024 MiniCPM-2B; decode at B 4 against a 1024-token
+    cache), with the ratios.  Not a gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import analytic
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(TRAIN_ARCH)
+    lm = TF.LM(cfg, device="meta")
+    n_params = sum(p.numel() for p in lm.parameters())
+    train = ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B)
+    ex = analytic.exec_flops(cfg, train, "train", cfg.remat)
+    us = analytic.useful_flops(cfg, train, "train")
+    hbm = analytic.hbm_bytes(cfg, train, "train", 4)
+    own = train_flop_bound(torch, cfg, n_params, TRAIN_B, TRAIN_S)["flops"]
+    cache = [{n: torch.empty(s, dtype=dt, device="meta")
+              for n, (s, dt, _) in layer.items()}
+             for layer in TF.cache_shapes(cfg, TRAIN_B, TRAIN_S)]
+    dec_own = decode_bytes(torch, cfg, lm, cache)
+    dec = analytic.hbm_bytes(cfg, ShapeConfig("decode", "decode", TRAIN_S,
+                                              TRAIN_B), "decode", 2)
+    phase("mesh", gate="(e) bounds side by side (not a gate)",
+          analytic_exec_flops=f"{ex:.4e}", analytic_useful_flops=f"{us:.4e}",
+          train_flop_bound=f"{own:.4e}",
+          exec_over_bound=f"{ex / own:.4f}", useful_over_bound=f"{us / own:.4f}",
+          analytic_train_hbm_bytes=f"{hbm:.4e}",
+          analytic_decode_hbm_bytes=f"{dec:.4e}", decode_bytes=f"{dec_own:.4e}",
+          analytic_over_decode_bytes=f"{dec / dec_own:.4f}",
+          n_params=n_params, cfg_n_params=cfg.n_params())
+
+
+def mesh_phase(torch, np, dev, src: str, runs: dict = None) -> dict:
+    """The mesh phase: (a), (b) and (e) on a world-size-1 nccl group and
+    ``make_host_mesh()`` (destroyed after), then (c) and (d) on the fake
+    process group in the subprocesses of ``runs`` (``start_dry_runs``;
+    started here where not given).  Returns (b)'s kernel counts."""
+    t_phase = time.perf_counter()
+    if runs is not None:
+        return _mesh_phase(torch, np, dev, runs, t_phase)
+    runs = start_dry_runs(src)
+    try:
+        return _mesh_phase(torch, np, dev, runs, t_phase)
+    finally:
+        stop_dry_runs(runs)
+
+
+def _mesh_phase(torch, np, dev, runs: dict, t_phase: float) -> dict:
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = host_mesh(dev)
+    phase("mesh", backend=dist.get_backend(), world_size=dist.get_world_size(),
+          mesh=str(mesh))
+    try:
+        mesh_gate_a(torch, dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = mesh_full(torch, np, dev)
+        mesh_bounds(torch)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = join_dry_runs(runs)
+    bad = [r for r in recs if r["status"] != "ok"]
+    for r in recs:
+        if r["status"] != "ok":
+            phase("mesh", cell=f"{r['arch']} {r['shape']}",
+                  status=r["status"], error=r.get("error"),
+                  traceback=r.get("traceback", "")[-1500:])
+            continue
+        t = r["roofline"]
+        phase("mesh", cell=f"{r['arch']} {r['shape']}", mesh=r["mesh"],
+              microbatches=r["microbatches"],
+              bytes_per_device_gb=f"{r['memory']['per_device_live_bytes'] / 1e9:.3f}",
+              fits_h100_80g=r["memory"]["fits_h100_80g"],
+              t_compute_s=f"{t['t_compute_s']:.4e}",
+              t_compute_traced_s=f"{t['t_compute_traced_s']:.4e}",
+              t_memory_s=f"{t['t_memory_s']:.4e}",
+              t_collective_s=f"{t['t_collective_s']:.4e}",
+              dominant=t["dominant"],
+              collective_by_kind=t["collective_by_kind"],
+              traced_flops_per_dev=f"{t['traced_flops_per_dev']:.4e}",
+              exec_flops_per_dev=f"{t['exec_flops'] / r['chips']:.4e}",
+              wall_s=r["wall_s"])
+    phase("mesh", dry_runs_wall_s=f"{time.perf_counter() - runs['t0']:.1f}",
+          dry_runs_waited_s=f"{time.perf_counter() - t0:.1f}")
+    if bad:
+        raise RuntimeError(f"mesh: {len(bad)} dry-run cells not ok")
+    est = recs[0]["memory"]["per_device_live_bytes"]
+    err = abs(est - full["peak"]) / full["peak"]
+    phase("mesh", gate="(c) the dry run's bytes a device vs (b)'s peak",
+          dry_run_gb=f"{est / 1e9:.3f}", measured_gb=f"{full['peak'] / 1e9:.3f}",
+          rel_err=f"{err:.4f}", tol=MESH_DRY_TOL)
+    if not err <= MESH_DRY_TOL:
+        raise RuntimeError(f"mesh (c): the dry run's {est / 1e9:.2f} GB is "
+                           f"{err:.1%} from the measured peak")
+    phase("mesh", phase_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return full["launches"]
+
+
 def walk_times(torch, np, dev, smi: str) -> int:
     """``--walk-times``: only the pagewalk timings of phases 3 and 5 (the
     table sweep and its decomposition; the consumers' shapes and the
@@ -3578,12 +4006,18 @@ def main(argv=None) -> int:
                     "out (the long four's 1guest-preempt, all nine's "
                     "2guest- and 4guest-preempt), each held to the goldens "
                     "(no other phase, no result line)")
+    ap.add_argument("--serving", action="store_true",
+                    help="only the build and the serving phases (model, "
+                    "moe, recurrent; no other phase, no result line)")
     ap.add_argument("--recurrent", action="store_true",
                     help="only the build and the recurrent phase (no "
                     "other phase, no result line)")
     ap.add_argument("--train", action="store_true",
                     help="only the build and the train phase (no other "
                     "phase, no result line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the mesh phase (no other phase, no result "
+                    "line)")
     ap.add_argument("--serve", action="store_true",
                     help="only the 16-submission serve trace through the "
                     "port's service (no other phase, no result line)")
@@ -3616,6 +4050,20 @@ def main(argv=None) -> int:
         hext_matrix(torch, dev)
         print(smi, flush=True)
         return 0
+    if args.serving:
+        phase("serving", src=Path(args.src).resolve(),
+              torch=torch.__version__)
+        print(smi, flush=True)
+        info = build.compile_source("flash_attention")
+        phase("build", kernel="flash_attention",
+              seconds=f"{info['seconds']:.2f}")
+        for serving_phase in (model_phase, moe_phase):
+            torch.cuda.empty_cache()
+            serving_phase(torch, np, dev)
+        torch.cuda.empty_cache()
+        recurrent_phase(torch, np, dev, info["log"])
+        print(smi, flush=True)
+        return 0
     if args.recurrent:
         phase("recurrent", torch=torch.__version__)
         print(smi, flush=True)
@@ -3632,6 +4080,12 @@ def main(argv=None) -> int:
         phase("build", kernel="flash_attention",
               seconds=f"{info['seconds']:.2f}")
         train_phase(torch, np, dev)
+        print(smi, flush=True)
+        return 0
+    if args.mesh:
+        phase("mesh", torch=torch.__version__)
+        print(smi, flush=True)
+        mesh_phase(torch, np, dev, str(Path(args.src).resolve()))
         print(smi, flush=True)
         return 0
     if args.serve:
@@ -3678,11 +4132,24 @@ def main(argv=None) -> int:
                  recurrentgemma_library_ms=rec["rg"]["library_ms"])
     kernels = [walk, attention, flash]
     torch.cuda.empty_cache()
-    # the training path's launches of each kernel (0: it reaches none)
-    train_launches = train_phase(torch, np, dev)
+    # the mesh phase's dry runs trace on the host while the train phase
+    # and the mesh phase's own steps run on the card
+    src = str(Path(args.src).resolve())
+    runs = start_dry_runs(src)
+    try:
+        # the training path's launches of each kernel (0: it reaches none)
+        train_launches = train_phase(torch, np, dev)
+        for entry, name in zip(kernels, ("pagewalk", "paged_attention",
+                                         "flash_attention")):
+            entry["train_launches"] = train_launches[name]
+        torch.cuda.empty_cache()
+        # the mesh half: the DTensor train step at world size 1, the dry run
+        mesh_launches = mesh_phase(torch, np, dev, src, runs)
+    finally:
+        stop_dry_runs(runs)
     for entry, name in zip(kernels, ("pagewalk", "paged_attention",
                                      "flash_attention")):
-        entry["train_launches"] = train_launches[name]
+        entry["mesh_launches"] = mesh_launches[name]
     torch.cuda.empty_cache()
     # last: after CUDA graphs were captured and traced in a process, a
     # later trace of the pagewalk calls there held no spin kernels

@@ -20,6 +20,11 @@ copies every tensor to the host before it returns, so training can go
 on writing the tensors in place while the bytes reach the disk.  numpy
 has no bf16: a bf16 tensor is stored as its 16-bit patterns (uint16),
 with ``bfloat16`` in the manifest, and restored bit for bit.
+
+On a mesh a leaf may be a DTensor: ``save`` writes its full value, and
+``restore(..., shardings=)`` places each saved leaf on its DTensor
+placements (``distribute_tensor``), as JAX's ``device_put`` onto
+``NamedSharding``s.
 """
 from __future__ import annotations
 
@@ -49,11 +54,35 @@ def _flatten_with_paths(tree, prefix=""):
 
 
 def _to_host(x) -> np.ndarray:
-    """A host copy of a tensor (bf16 as its uint16 patterns)."""
+    """A host copy of a tensor (a DTensor's full value; bf16 as its
+    uint16 patterns)."""
+    if type(x).__name__ == "DTensor":
+        x = x.full_tensor()
     t = x.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
+
+
+def _replace(tree, new: Dict[str, Any], prefix=""):
+    """``tree`` with the leaves at the paths of ``new`` replaced (dicts
+    are updated in place, named tuples rebuilt)."""
+    if isinstance(tree, dict):
+        for k in tree:
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if path in new:
+                tree[k] = new[path]
+            else:
+                tree[k] = _replace(tree[k], new, path)
+        return tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        vals = []
+        for f in tree._fields:
+            path = f"{prefix}/.{f}" if prefix else "." + f
+            vals.append(new[path] if path in new
+                        else _replace(getattr(tree, f), new, path))
+        return type(tree)(*vals)
+    return tree
 
 
 class Checkpointer:
@@ -129,15 +158,33 @@ class Checkpointer:
                     pass
         return max(steps) if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                mesh=None) -> Any:
         """Restore into ``like`` (a tree of tensors, e.g. a freshly built
         state) in place: each leaf takes the saved values on its own
-        device and in its own dtype.  Returns ``like``."""
+        device and in its own dtype.  Returns ``like``.
+
+        ``shardings`` (a tree of ``like``'s structure whose leaves are
+        DTensor placements, ``ShardingPolicy.tree_shardings``) places
+        each saved leaf on ``mesh`` (default: the mesh of ``like``'s
+        DTensors) by ``distribute_tensor``: a DTensor leaf of ``like``
+        on those placements takes the values in place, a plain one is
+        replaced (in its dict or named tuple) by the new DTensor."""
         d = self._final_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             keys = json.load(f)["keys"]
         data = np.load(os.path.join(d, "shard_0.npz"))
-        for key, leaf in _flatten_with_paths(like).items():
+        flat = _flatten_with_paths(like)
+        places = (None if shardings is None
+                  else _flatten_with_paths(shardings))
+        if places is not None and mesh is None:
+            mesh = next((x.device_mesh for x in flat.values()
+                         if type(x).__name__ == "DTensor"), None)
+            if mesh is None:
+                raise ValueError("restore(shardings=...) needs a mesh: "
+                                 "pass mesh= or DTensor leaves")
+        new = {}
+        for key, leaf in flat.items():
             t = torch.from_numpy(np.array(data[key.replace("/", "|")],
                                           copy=True))
             if keys[key]["dtype"] == "bfloat16":
@@ -145,9 +192,21 @@ class Checkpointer:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: saved shape {tuple(t.shape)}, "
                                  f"restoring into {tuple(leaf.shape)}")
+            if places is not None:
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(
+                    t.to(device=mesh.device_type, dtype=leaf.dtype), mesh,
+                    places[key])
+                if type(leaf).__name__ != "DTensor":
+                    new[key] = t
+                    continue
+                if list(leaf.placements) != list(t.placements):
+                    raise ValueError(f"{key}: restoring onto "
+                                     f"{t.placements}, the leaf is on "
+                                     f"{leaf.placements}")
             with torch.no_grad():
                 leaf.copy_(t)
-        return like
+        return _replace(like, new) if new else like
 
     def gc(self, keep: int):
         all_steps = sorted(int(d[5:]) for d in os.listdir(self.root)

@@ -43,13 +43,15 @@ class CheckpointManager:
             return True
         return False
 
-    def restore_or_init(self, init_fn: Callable[[], Any]):
-        """→ (state, start_step). Resumes from the latest commit if any."""
+    def restore_or_init(self, init_fn: Callable[[], Any],
+                        shardings: Any = None):
+        """→ (state, start_step). Resumes from the latest commit if any,
+        placed on ``shardings`` (``Checkpointer.restore``) if given."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return init_fn(), 0
         like = init_fn()
-        state = self.ckpt.restore(latest, like)
+        state = self.ckpt.restore(latest, like, shardings=shardings)
         return state, latest
 
     def finalize(self):

@@ -11,6 +11,12 @@ TF32 tensor cores cannot (see the note in the CUDA source).
 
 ``flash_attention_kernel.launches`` counts the launches this process made;
 the wrapper adds one where it launches the kernel and nowhere else.
+
+The launch is bound as the custom op ``repro_torch::flash_attention``: on
+CUDA tensors it launches the kernel; on fake tensors (the dry run's
+``FakeTensorMode``) its fake implementation gives ``empty_like(q)`` and
+launches nothing; on DTensors its sharding rule (``_sharding``) runs it
+per batch row or per head group on each device's local tensors.
 """
 from __future__ import annotations
 
@@ -54,6 +60,11 @@ def flash_attention_kernel(q, k, v, scale: float, window: int = 0):
 
     q [B,S,H,hd]; k,v [B,S,KV,hd], contiguous, all fp32 or all bf16, with
     H % KV == 0 and hd <= 256 → [B,S,H,hd] in q's dtype."""
+    _check_inputs(q, k, v, window)
+    return _flash_op()(q, k, v, float(scale), int(window))
+
+
+def _check_inputs(q, k, v, window):
     dev = q.device
     _check("q", q, DTYPES, dev)
     _check("k", k, (q.dtype,), dev)
@@ -69,6 +80,13 @@ def flash_attention_kernel(q, k, v, scale: float, window: int = 0):
         raise ValueError(f"head dim {hd} outside [1, {MAX_HEAD_DIM}]")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch(q, k, v, scale: float, window: int):
+    """The launch itself (the custom op's CUDA implementation)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dev = q.device
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
@@ -90,3 +108,40 @@ def flash_attention_kernel(q, k, v, scale: float, window: int = 0):
 
 
 flash_attention_kernel.launches = 0
+_OP = []
+
+
+def _flash_op():
+    """``torch.ops.repro_torch.flash_attention``, defined on first use
+    with its fake implementation and its DTensor sharding rule."""
+    if _OP:
+        return _OP[0]
+
+    @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+           window: int) -> torch.Tensor:
+        return _launch(q, k, v, scale, window)
+
+    @op.register_fake
+    def _(q, k, v, scale, window):
+        return torch.empty_like(q)
+
+    from torch.distributed.tensor.experimental import register_sharding
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(
+        _sharding)
+    _OP.append(op)
+    return op
+
+
+def _sharding(q, k, v, scale, window):
+    """Acceptable placements on one mesh dimension: all replicated, the
+    batch sharded, or (when every head count divides over the whole
+    mesh, so each device keeps whole GQA groups) the heads sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [([Replicate()], [Replicate()] * 3 + [None, None]),
+           ([Shard(0)], [Shard(0)] * 3 + [None, None])]
+    n = q.mesh.size()
+    if q.shape[2] % n == 0 and k.shape[2] % n == 0:
+        out.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
+    return out

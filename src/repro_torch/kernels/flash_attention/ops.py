@@ -37,4 +37,8 @@ def flash_attention(q, k, v, scale: float, window: int = 0,
                                       v.contiguous(), scale, window)
     if force == "kernel":
         raise ValueError(f"force='kernel' needs CUDA tensors, got {dev}")
+    if type(q).__name__ == "DTensor":    # on a mesh: each device's shards
+        from repro_torch.models.activation_sharding import by_heads
+        return by_heads(lambda *a: flash_attention_ref(*a, scale, window),
+                        q, k, v)
     return flash_attention_ref(q, k, v, scale, window)

@@ -38,6 +38,15 @@ from repro_torch.models.layers import (apply_rope, dense_init, param,
 NEG_INF = -1e30
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of each ``Attention`` leaf (``init_attention``)."""
+    del cfg
+    return {"wq": ("fsdp", "tp", None), "wk": ("fsdp", "tp", None),
+            "wv": ("fsdp", "tp", None), "wo": ("tp", None, "fsdp"),
+            "bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None),
+            "q_norm": (None,), "k_norm": (None,)}
+
+
 class Attention(nn.Module):
     """wq [d,H,hd], wk/wv [d,KV,hd], wo [H,hd,d] in ``dtype``; optional
     bq [H,hd], bk/bv [KV,hd] (``dtype``; never on a ``cross`` attention)
@@ -69,8 +78,7 @@ class Attention(nn.Module):
 
 def _proj(x, w):
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
-    return torch.matmul(x, w.to(x.dtype).flatten(1)).unflatten(-1,
-                                                                w.shape[1:])
+    return activation_sharding.linear(x, w.to(x.dtype))
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x):
@@ -100,7 +108,29 @@ def attention_core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
     h = kv*G + g, the order JAX's repeat of K/V gives) and contracted
     against k/v as they are, with no copy of K/V per query head; the QK^T
     product in the operands' dtype, then an fp32 softmax whose weights go
-    back to v's dtype."""
+    back to v's dtype.
+
+    On a mesh it runs on each device's batch rows and heads, or its
+    query rows where the heads cannot stay whole in their GQA groups
+    (``activation_sharding.by_heads``: as DTensor ops, the grouped
+    product would fold two sharded dimensions into one), except a decode
+    step against a cache sharded along its keys, which runs as DTensor
+    ops: the key dimension stays sharded, the softmax's max and sum and
+    the product with V reduce partials over it (flash decoding), as
+    JAX's decode scores hook asks."""
+    if activation_sharding.is_dtensor(q):
+        keys_sharded = activation_sharding.is_dtensor(k) and any(
+            getattr(p, "dim", None) == 1 for p in k.placements)
+        if not (q.shape[1] == 1 and keys_sharded):
+            return activation_sharding.by_heads(
+                lambda *a: _core(*a, scale, attn_softcap), q, k, v, mask,
+                rows=True)
+        # the one query row gathered over its heads (a few KB)
+        q = activation_sharding.without(q, dims=(2,))
+    return _core(q, k, v, mask, scale, attn_softcap)
+
+
+def _core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.view(B, S, KV, H // KV, hd)
@@ -110,12 +140,18 @@ def attention_core(q, k, v, mask, scale: float, attn_softcap: float = 0.0):
                                            "scores").unflatten(1, (KV, -1))
     scores = softcap(scores, attn_softcap)
     scores = torch.where(mask.unsqueeze(2), scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    if activation_sharding.is_dtensor(scores):
+        # partial max and sum over a sharded key dimension (softmax
+        # itself would gather the scores)
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        w = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    else:
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, hd)
 
 
 def _out_proj(p: Attention, cfg: ModelConfig, out):
-    return torch.matmul(out.flatten(-2), p.wo.to(out.dtype).flatten(0, 1))
+    return activation_sharding.linear(out, p.wo.to(out.dtype), k=2)
 
 
 def attn_train(p: Attention, cfg: ModelConfig, x, positions, window=None):
@@ -157,6 +193,14 @@ def _write_slot(cache, slot, rows):
     B, T = cache.shape[:2]
     j = wrap(slot.long(), T)
     keep = (j >= 0) & (j < T)
+    if activation_sharding.is_dtensor(cache):
+        # on a mesh, a select over the slots (the slab may be sharded
+        # along them): the same result, as DTensor ops
+        hit = (torch.arange(T, device=cache.device)[None, :] == j[:, None]
+               ) & keep[:, None]
+        cache.copy_(torch.where(hit[:, :, None, None],
+                                rows.to(cache.dtype)[:, None], cache))
+        return
     j = j.clamp(0, T - 1)
     b = torch.arange(B, device=cache.device)
     cache[b, j] = torch.where(keep[:, None, None], rows.to(cache.dtype),

@@ -1,7 +1,10 @@
 """Foundational layers: norms, RoPE, activations and seeded initialisers.
 
 The JAX package keeps a logical sharding spec beside every weight; the
-port holds plain tensors (sharding waits for the multi-GPU slice).  Every
+port holds plain tensors, and each module that makes weights has a
+``param_specs(cfg)`` table of JAX's specs by leaf name (a spec is a tuple
+of logical axes, JAX's ``PartitionSpec``), which
+``transformer.logical_specs`` keys by parameter name.  Every
 function and module here that makes a tensor takes ``device=None``, which
 is ``cuda`` (``repro_torch.device.resolve``); the CPU is used only when
 it is asked for.
@@ -15,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve
+from repro_torch.models import activation_sharding
 
 
 # ---------------------------------------------------------------------------
@@ -88,11 +92,20 @@ class Norm(nn.Module):
             self.b = param(torch.zeros(d, device=device))
 
 
+# JAX's specs of the leaves made here: a norm's weight and bias, and the
+# embedding table (vocab on tp for sharded logits, d on fsdp)
+NORM_SPECS = {"w": (None,), "b": (None,)}
+EMBED_SPEC = ("tp", "fsdp")
+
+
 def init_norm(norm_type: str, d: int, device=None) -> Norm:
     return Norm(norm_type, d, device)
 
 
 def apply_norm(norm_type: str, p: Norm, x, eps: float):
+    # on a mesh, a partial sum (a row-parallel product's output) is
+    # reduced in its own dtype here, not after the norm's fp32 cast
+    x = activation_sharding.without(x)
     if norm_type == "rmsnorm":
         return rmsnorm(x, p.w, eps)
     return layernorm(x, p.w, p.b, eps)
@@ -116,7 +129,10 @@ def apply_rope(x, positions, theta: float):
     angles = positions[..., None].float() * freqs       # [..., S, hd/2]
     cos = torch.cos(angles)[..., None, :]               # [..., S, 1, hd/2]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    # halves by slicing (their backward is a copy into zeros: contiguous,
+    # which DTensor's views of the gradient need; chunk's is a cat)
+    xf = x.float()
+    x1, x2 = xf[..., :hd // 2], xf[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -8,7 +8,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.activation_sharding import linear
 from repro_torch.models.layers import dense_init, param, squared_relu
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of each ``MLP`` leaf (``init_mlp``)."""
+    del cfg
+    return {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+            "w_down": ("tp", "fsdp")}
 
 
 class MLP(nn.Module):
@@ -29,11 +37,11 @@ class MLP(nn.Module):
 
 def apply_mlp(p: MLP, cfg: ModelConfig, x):
     if cfg.mlp_type == "swiglu":
-        g = torch.matmul(x, p.w_gate.to(x.dtype))
-        u = torch.matmul(x, p.w_up.to(x.dtype))
+        g = linear(x, p.w_gate.to(x.dtype))
+        u = linear(x, p.w_up.to(x.dtype))
         h = F.silu(g) * u
     else:
-        h = torch.matmul(x, p.w_up.to(x.dtype))
+        h = linear(x, p.w_up.to(x.dtype))
         h = squared_relu(h) if cfg.mlp_type == "squared_relu" else \
             F.gelu(h, approximate="tanh")
-    return torch.matmul(h, p.w_down.to(x.dtype))
+    return linear(h, p.w_down.to(x.dtype))

@@ -35,6 +35,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.activation_sharding import (is_dtensor, linear,
+                                                    replicated, without)
 from repro_torch.models.layers import _truncated_normal, dense_init, param
 
 NEG_INF = -1e30
@@ -42,6 +44,14 @@ NEG_INF = -1e30
 
 def _padded_experts(cfg: ModelConfig) -> int:
     return max(cfg.moe.n_experts, cfg.moe.pad_experts_to)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of each ``MoE`` leaf (``init_moe``): experts on
+    tp when ``ep_shard``, else replicated."""
+    e_ax = "tp" if cfg.moe.ep_shard else None
+    return {"router": (None, None), "w_gate": (e_ax, None, None),
+            "w_up": (e_ax, None, None), "w_down": (e_ax, None, None)}
 
 
 class MoE(nn.Module):
@@ -69,7 +79,7 @@ class MoE(nn.Module):
 
 def router_logits(p: MoE, cfg: ModelConfig, x):
     """x [..., d] → fp32 logits [..., E], padded experts at -1e30."""
-    logits = torch.matmul(x.float(), p.router.float())
+    logits = linear(x.float(), p.router.float())
     E = logits.shape[-1]
     if E != cfg.moe.n_experts:   # mask padded experts out of routing
         emask = torch.arange(E, device=x.device) < cfg.moe.n_experts
@@ -101,8 +111,10 @@ def route_logits(cfg: ModelConfig, logits, dtype):
 
 
 def _route(p: MoE, cfg: ModelConfig, x):
-    """x: [..., d] → (gates [..., k], experts [..., k], aux_loss scalar)."""
-    return route_logits(cfg, router_logits(p, cfg, x), x.dtype)
+    """x: [..., d] → (gates [..., k], experts [..., k], aux_loss scalar).
+    On a mesh the routing runs on the full logits (``replicated``)."""
+    return replicated(lambda lg: route_logits(cfg, lg, x.dtype),
+                      router_logits(p, cfg, x))
 
 
 # ---------------------------------------------------------------------------
@@ -134,27 +146,25 @@ def dispatch(experts, E: int, C: int):
     return rank, rank < C
 
 
-def _dense_moe(p: MoE, cfg: ModelConfig, x, gates, experts):
+def _dense_moe(x, gates, experts, w_gate, w_up, w_down):
     """All-experts einsum path (smoke configs)."""
-    E = p.router.shape[-1]
+    E = w_gate.shape[0]
     xf = x.float()
-    g = torch.einsum("...d,edf->...ef", xf, p.w_gate.float())
-    u = torch.einsum("...d,edf->...ef", xf, p.w_up.float())
+    g = torch.einsum("...d,edf->...ef", xf, w_gate.float())
+    u = torch.einsum("...d,edf->...ef", xf, w_up.float())
     h = F.silu(g) * u
-    y_all = torch.einsum("...ef,efd->...ed", h, p.w_down.float())
+    y_all = torch.einsum("...ef,efd->...ed", h, w_down.float())
     onehot = F.one_hot(experts, E).float()                      # [...,k,E]
     w = torch.einsum("...k,...ke->...e", gates.float(), onehot)
     return torch.einsum("...ed,...e->...d", y_all, w).to(x.dtype)
 
 
-def _gather_moe(p: MoE, cfg: ModelConfig, x, gates, experts):
-    """Cumsum capacity dispatch: x [G, T, d], gates/experts [G, T, k] →
-    [G, T, d]."""
-    E = p.router.shape[-1]
-    k = cfg.moe.top_k
-    G, T, d = x.shape
-    C = capacity(cfg, T)
-    dev, dt = x.device, x.dtype
+def _slots(experts, E: int, C: int):
+    """experts [G, T, k] → (rows [E*G*C]: the row of x [G*T, d] each
+    dispatch slot reads, G*T for an empty one; slot [G, T, k]: the slot of
+    each assignment, 0 for an overflow one; keep [G, T*k])."""
+    G, T, k = experts.shape
+    dev = experts.device
     rank, keep = dispatch(experts, E, C)
     flat_e = experts.reshape(G, T * k)
     grp = torch.arange(G, device=dev)[:, None]
@@ -165,9 +175,32 @@ def _gather_moe(p: MoE, cfg: ModelConfig, x, gates, experts):
     # slot → row of x (G*T: the zero row), one writer per kept slot
     rows = torch.full((E * G * C + 1,), G * T, dtype=torch.long, device=dev)
     rows.scatter_(0, dst.reshape(-1), src.reshape(-1))
+    # JAX reads an overflow assignment at slot 0, with gate 0
+    slot = torch.where(keep, dst, 0).view(G, T, k)
+    return rows[:-1], slot, keep
+
+
+def _dispatch_rows(x, rows, E: int):
+    """The [E, G*C, d] dispatch buffer: row ``rows[s]`` of x [G, T, d] in
+    slot s (the zero row for G*T)."""
+    G, T, d = x.shape
     xz = torch.cat([x.reshape(G * T, d), x.new_zeros((1, d))])
-    xe = xz.index_select(0, rows[:-1]).view(E, G * C, d)
-    del rows, xz
+    return xz.index_select(0, rows).view(E, -1, d)
+
+
+def _gather_moe(p: MoE, cfg: ModelConfig, x, gates, experts):
+    """Cumsum capacity dispatch: x [G, T, d], gates/experts [G, T, k] →
+    [G, T, d].  On a mesh the slot math, the dispatch gather and the
+    combine run on full values (``replicated``); the expert products are
+    DTensor ops on the expert weights' placements."""
+    E = p.router.shape[-1]
+    k = cfg.moe.top_k
+    G, T, d = x.shape
+    C = capacity(cfg, T)
+    dt = x.dtype
+    rows, slot, keep = replicated(lambda e: _slots(e, E, C), experts)
+    xe = replicated(lambda xl, r: _dispatch_rows(xl, r, E), x, rows)
+    del rows
     g = torch.bmm(xe, p.w_gate.to(dt))
     u = torch.bmm(xe, p.w_up.to(dt))
     del xe
@@ -175,10 +208,8 @@ def _gather_moe(p: MoE, cfg: ModelConfig, x, gates, experts):
     del g, u
     ye = torch.bmm(h, p.w_down.to(dt)).view(E * G * C, d)
     del h
-    # JAX reads an overflow assignment at slot 0, with gate 0
-    slot = torch.where(keep, dst, 0).view(G, T, k)
     w = (gates.reshape(G, T * k) * keep).to(dt).view(G, T, k)
-    return combine(ye, slot, w)
+    return replicated(combine, ye, slot, w)
 
 
 def combine(ye, slot, w):
@@ -199,11 +230,15 @@ def apply_moe(p: MoE, cfg: ModelConfig, x, n_groups: int = 0):
     B, S, d = x.shape
     gates, experts, aux = _route(p, cfg, x)
     if cfg.moe.dispatch == "dense":
-        return _dense_moe(p, cfg, x, gates, experts), aux
-    # group tokens: one group per batch row unless n_groups
-    G = n_groups or max(1, B)
-    xg = x.reshape(G, (B * S) // G, d)
-    gg = gates.reshape(G, (B * S) // G, -1)
-    eg = experts.reshape(G, (B * S) // G, -1)
-    y = _gather_moe(p, cfg, xg, gg, eg).reshape(B, S, d)
+        y = replicated(_dense_moe, x, gates, experts, p.w_gate, p.w_up,
+                       p.w_down)
+    else:
+        # group tokens: one group per batch row unless n_groups
+        G = n_groups or max(1, B)
+        xg = x.reshape(G, (B * S) // G, d)
+        gg = gates.reshape(G, (B * S) // G, -1)
+        eg = experts.reshape(G, (B * S) // G, -1)
+        y = _gather_moe(p, cfg, xg, gg, eg).reshape(B, S, d)
+    if is_dtensor(x):   # back to the tokens' placements
+        y = y.redistribute(x.device_mesh, without(x).placements)
     return y, aux

@@ -27,7 +27,17 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.activation_sharding import linear
 from repro_torch.models.layers import _truncated_normal, dense_init, param
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of each ``RGLRU`` leaf (``init_rglru``)."""
+    del cfg
+    return {"w_main": ("fsdp", "tp"), "w_gate": ("fsdp", "tp"),
+            "conv_w": (None, "tp"), "conv_b": ("tp",),
+            "wa": ("tp", None), "ba": (None,), "wx": ("tp", None),
+            "bx": (None,), "lam": ("tp",), "w_out": ("tp", "fsdp")}
 
 
 class RGLRU(nn.Module):
@@ -107,9 +117,9 @@ def linear_scan(a, b):
 def apply_rglru(p: RGLRU, cfg: ModelConfig, x, h0=None, conv_state=None,
                 decode: bool = False):
     """x [B,S,D] → (y [B,S,D], (h [B,w] fp32, conv_state [B,W-1,w]))."""
-    gate = F.gelu(torch.matmul(x, p.w_gate.to(x.dtype)).float(),
+    gate = F.gelu(linear(x, p.w_gate.to(x.dtype)).float(),
                   approximate="tanh")
-    u = torch.matmul(x, p.w_main.to(x.dtype))
+    u = linear(x, p.w_main.to(x.dtype))
     u, conv_state = _conv1d(u, p.conv_w, p.conv_b, conv_state)
     a, b = _rglru_coeffs(p, cfg, u)
     if decode:
@@ -122,5 +132,5 @@ def apply_rglru(p: RGLRU, cfg: ModelConfig, x, h0=None, conv_state=None,
         hs = linear_scan(a, b)
         h = hs[:, -1]
     y = (hs * gate).to(x.dtype)
-    y = torch.matmul(y, p.w_out.to(x.dtype))
+    y = linear(y, p.w_out.to(x.dtype))
     return y, (h, conv_state)

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.activation_sharding import linear, on_rows
 from repro_torch.models.layers import _truncated_normal, dense_init, param
 from repro_torch.models.rglru import _conv1d
 
@@ -30,6 +31,14 @@ def ssm_dims(cfg: ModelConfig):
     d_inner = cfg.ssm.expand * cfg.d_model
     n_heads = d_inner // cfg.ssm.head_dim
     return d_inner, n_heads, cfg.ssm.d_state
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of each ``SSM`` leaf (``init_ssm``)."""
+    del cfg
+    return {"w_in": ("fsdp", "tp"), "conv_w": (None, "tp"),
+            "conv_b": ("tp",), "A_log": ("tp",), "dt_bias": ("tp",),
+            "D": ("tp",), "norm_w": ("tp",), "w_out": ("tp", "fsdp")}
 
 
 class SSM(nn.Module):
@@ -159,7 +168,7 @@ def apply_ssm(p: SSM, cfg: ModelConfig, x, h0=None, conv_state=None,
     Returns (y, (h [B,H,P,N] fp32, conv_state))."""
     d_inner, H, N = ssm_dims(cfg)
     Pd = cfg.ssm.head_dim
-    zxbcdt = torch.matmul(x, p.w_in.to(x.dtype))
+    zxbcdt = linear(x, p.w_in.to(x.dtype))
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     dt = F.softplus(dt.float() + p.dt_bias.float())            # [B,S,H]
     xBC, conv_state = _causal_conv(xBC, p.conv_w, p.conv_b, conv_state)
@@ -167,16 +176,19 @@ def apply_ssm(p: SSM, cfg: ModelConfig, x, h0=None, conv_state=None,
     A = -torch.exp(p.A_log.float())                            # [H]
     Bsz, S = x.shape[0], x.shape[1]
     xh = xin.reshape(Bsz, S, H, Pd)
+    # on a mesh, each device's batch rows (``on_rows``)
     if decode:
-        y, h = ssd_decode_step(
-            xh[:, 0].float(), dt[:, 0], A, Bm[:, 0].float(),
-            Cm[:, 0].float(), p.D.float(),
+        y, h = on_rows(
+            ssd_decode_step, xh[:, 0].float(), dt[:, 0], A,
+            Bm[:, 0].float(), Cm[:, 0].float(), p.D.float(),
             (x.new_zeros((Bsz, H, Pd, N), dtype=torch.float32)
              if h0 is None else h0.float()))
         y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
     else:
-        y, h = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
-                           p.D.float(), cfg.ssm.chunk, h0=h0)
+        y, h = on_rows(
+            lambda x_, dt_, A_, B_, C_, D_, h_: ssd_chunked(
+                x_, dt_, A_, B_, C_, D_, cfg.ssm.chunk, h0=h_),
+            xh.float(), dt, A, Bm.float(), Cm.float(), p.D.float(), h0)
         y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float()).to(x.dtype)
@@ -184,5 +196,5 @@ def apply_ssm(p: SSM, cfg: ModelConfig, x, h0=None, conv_state=None,
     yf = y.float()
     yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
     y = (yf * (1.0 + p.norm_w.float())).to(dtp)
-    y = torch.matmul(y, p.w_out.to(x.dtype))
+    y = linear(y, p.w_out.to(x.dtype))
     return y, (h, conv_state)

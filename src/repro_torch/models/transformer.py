@@ -55,7 +55,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
+from repro_torch.models.layers import (EMBED_SPEC, NORM_SPECS, Norm,
+                                       apply_norm, embed_init, init_norm,
                                        param, sinusoidal_positions)
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -196,18 +197,47 @@ class LM(nn.Module):
 
 
 def init_lm(cfg: ModelConfig, generator, device=None,
-            dtype=None) -> LM:
+            dtype=None, with_specs: bool = False):
     """Seeded weights of ``cfg`` on ``device`` (default ``cuda``), those
     the compute casts in ``dtype`` (``torch.float32`` for training).
     ``generator`` is a ``torch.Generator`` of that device or an int seed;
-    on the ``meta`` device only the shapes are made."""
+    on the ``meta`` device only the shapes are made.  Returns the ``LM``,
+    or with ``with_specs`` the pair (``LM``, ``logical_specs(cfg)``), as
+    JAX's ``init_lm`` returns its twin trees."""
     dev = resolve(device)
     if dev.type == "meta":
         generator = None
     elif isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=dev)
         generator.manual_seed(seed)
-    return LM(cfg, generator, device=dev, dtype=dtype)
+    lm = LM(cfg, generator, device=dev, dtype=dtype)
+    return (lm, module_specs(cfg, lm)) if with_specs else lm
+
+
+def module_specs(cfg: ModelConfig, lm: nn.Module) -> dict:
+    """JAX's logical spec of each parameter of ``lm`` (an ``LM`` of
+    ``cfg``), keyed as ``lm.named_parameters()``: each module's
+    ``param_specs`` table by leaf name.  A per-layer leaf has the spec of
+    JAX's stacked leaf without its leading None."""
+    tables = {attn_mod.Attention: attn_mod.param_specs(cfg),
+              mlp_mod.MLP: mlp_mod.param_specs(cfg),
+              moe_mod.MoE: moe_mod.param_specs(cfg),
+              rglru_mod.RGLRU: rglru_mod.param_specs(cfg),
+              ssm_mod.SSM: ssm_mod.param_specs(cfg),
+              Norm: NORM_SPECS,
+              LM: {"embed": EMBED_SPEC, "lm_head": EMBED_SPEC}}
+    out = {}
+    for prefix, mod in lm.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{name}" if prefix else name] = \
+                tables[type(mod)][name]
+    return out
+
+
+def logical_specs(cfg: ModelConfig) -> dict:
+    """JAX's logical spec of every weight of ``cfg``'s ``LM``, keyed as
+    its ``named_parameters()`` (a spec is a tuple of logical axes)."""
+    return module_specs(cfg, LM(cfg, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -282,16 +312,20 @@ def embed_tokens(params: LM, cfg: ModelConfig, tokens):
             table.shape[0], device=tokens.device)).to(COMPUTE_DTYPE)
         x = torch.matmul(oh, table)
     else:
-        x = take(params.embed, tokens).to(COMPUTE_DTYPE)
+        x = activation_sharding.gather_rows(params.embed, tokens).to(
+            COMPUTE_DTYPE)
     x = activation_sharding.constrain(x, "embed")
     return x * torch.tensor(cfg.scale_emb, dtype=COMPUTE_DTYPE,
                             device=x.device)
 
 
 def unembed(params: LM, cfg: ModelConfig, x):
+    # on a mesh, the sequence gathered (the "logits" hook's layout; as
+    # DTensor ops the product would fold two sharded dimensions into one)
+    x = activation_sharding.without(x, dims=(1,), partial=False)
     x = apply_norm(cfg.norm_type, params.final_norm, x, cfg.norm_eps)
     table = getattr(params, "lm_head", params.embed)
-    logits = torch.matmul(x, table.to(x.dtype).T)
+    logits = activation_sharding.linear(x, table.to(x.dtype).T)
     if logits.ndim == 3:
         logits = activation_sharding.constrain(logits, "logits")
     if cfg.dim_model_base:
@@ -349,7 +383,9 @@ def lm_loss(logits, labels, z_loss: float = 1e-4):
     mask = (labels >= 0).float()
     labels = labels.clamp(min=0)
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True).detach()
+    # on a mesh (vocabulary-sharded logits) the row max is reduced here,
+    # a partial max, before it meets the partial sums below
+    m = activation_sharding.without(lf.amax(dim=-1, keepdim=True).detach())
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
     vocab = torch.arange(lf.shape[-1], device=lf.device)
@@ -388,38 +424,48 @@ def _cache_entry_shapes(cfg: ModelConfig, kind: str, batch: int,
         # sliding-window archs only keep a window-sized ring slab
         T = min(max_seq, cfg.window) if cfg.window else max_seq
         ent = ((batch, T, cfg.n_kv_heads, cfg.resolved_head_dim),
-               COMPUTE_DTYPE)
+               COMPUTE_DTYPE, ("dp", "sp", "tp", None))
         return {"k": ent, "v": ent}
     if kind == "rglru":
         w = cfg.rglru.lru_width or cfg.d_model
-        return {"h": ((batch, w), torch.float32),
+        return {"h": ((batch, w), torch.float32, ("dp", "tp")),
                 "conv": ((batch, cfg.rglru.conv_width - 1, w),
-                         COMPUTE_DTYPE)}
+                         COMPUTE_DTYPE, ("dp", None, "tp"))}
     d_inner, H, N = ssm_mod.ssm_dims(cfg)
-    return {"h": ((batch, H, cfg.ssm.head_dim, N), torch.float32),
+    return {"h": ((batch, H, cfg.ssm.head_dim, N), torch.float32,
+                  ("dp", "tp", None, None)),
             "conv": ((batch, cfg.ssm.conv_width - 1, d_inner + 2 * N),
-                     COMPUTE_DTYPE)}
+                     COMPUTE_DTYPE, ("dp", None, "tp"))}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> List[dict]:
-    """Per layer ``{name: (shape, dtype)}`` by the layer's kind (module
-    docstring), with the cross-attention K/V of an encoder-decoder."""
+    """Per layer ``{name: (shape, dtype, logical spec)}`` by the layer's
+    kind (module docstring), with the cross-attention K/V of an
+    encoder-decoder; each spec is JAX's (a stacked leaf's without its
+    leading None)."""
     check_supported(cfg)
     out = [_cache_entry_shapes(cfg, kind, batch, max_seq)
            for kind in layer_kinds(cfg)]
     if cfg.is_enc_dec:
         ent = ((batch, cfg.n_enc_ctx, cfg.n_kv_heads,
-                cfg.resolved_head_dim), COMPUTE_DTYPE)
+                cfg.resolved_head_dim), COMPUTE_DTYPE,
+               ("dp", None, "tp", None))
         for layer in out:
             layer.update(cross_k=ent, cross_v=ent)
     return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> List[dict]:
+    """Per layer ``{name: logical spec}`` of ``cache_shapes``."""
+    return [{n: t[2] for n, t in layer.items()}
+            for layer in cache_shapes(cfg, batch, max_seq)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> List[dict]:
     dev = resolve(device)
     return [{n: torch.zeros(s, dtype=dt, device=dev)
-             for n, (s, dt) in layer.items()}
+             for n, (s, dt, _) in layer.items()}
             for layer in cache_shapes(cfg, batch, max_seq)]
 
 

@@ -43,7 +43,9 @@ def test_port_has_modules():
                 "optim/schedule.py", "data/pipeline.py",
                 "runtime/sharding.py", "runtime/train_loop.py",
                 "checkpoint/checkpointer.py", "checkpoint/manager.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py", "launch/specs.py",
+                "launch/analytic.py", "launch/roofline.py",
+                "launch/dryrun.py"):
         assert mod in names
 
 

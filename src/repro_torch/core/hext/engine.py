@@ -42,6 +42,7 @@ import torch
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import machine as _machine
 from repro_torch.core.hext import oracle as _oracle
+from repro_torch.core.hext import tracing
 
 __all__ = ["Engine", "TorchEngine", "GraphEngine", "OracleEngine",
            "ShardedEngine", "ENGINES",
@@ -170,11 +171,25 @@ def _ticks(raw: Dict, n: int) -> Dict:
     return raw
 
 
+def _tick_body(static: Dict, ips: int) -> None:
+    """What a graph captures: ``ips`` device-gated ticks of ``static`` and
+    the copy of the new state back into it, under the stage spans."""
+    with tracing.span("hext.tick"):
+        new = _ticks(static, ips)
+        with tracing.span("hext.graph.copy_back"):
+            _copy_into(static, new)
+
+
 class CapturedTicks:
     """``ips`` device-gated ticks captured as one CUDA graph over the
     static state buffers ``static``; the captured ticks end by copying the
     new state into those buffers, so each :meth:`replay` advances them by
-    ``ips`` ticks.  ``capture_s`` is the wall time of warm-up + capture."""
+    ``ips`` ticks.  ``capture_s`` is the wall time of warm-up + capture.
+
+    The tick's stage spans (``hext.tick`` over the whole body, its
+    stages, ``hext.graph.copy_back``) record timing events into the graph
+    (``stages``, a :class:`tracing.Capture`), so every replay times each
+    stage."""
 
     def __init__(self, raw: Dict, ips: int):
         t0 = time.perf_counter()
@@ -190,10 +205,13 @@ class CapturedTicks:
                 _ticks(self.static, 1)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                _copy_into(self.static, _ticks(self.static, ips))
+            self.stages = tracing.Capture(ips)
+            with torch.cuda.graph(self.graph), self.stages:
+                _tick_body(self.static, ips)
         torch.cuda.synchronize(dev)
         self.ips = ips
+        # whether the latest replay ran with tracing off (GraphEngine.run)
+        self.untraced = False
         self.capture_s = time.perf_counter() - t0
 
     def load(self, raw: Dict) -> None:
@@ -219,7 +237,9 @@ class GraphEngine:
     The state is copied into the static buffers at the start of a run and
     out at its end, so what ``run`` returns aliases nothing of the cache
     and nothing the caller holds changes.  A capture or launch failure
-    raises; there is no fallback to the eager engine."""
+    raises; there is no fallback to the eager engine.  While tracing is
+    on, a run whose graph was last replayed with tracing off takes that
+    replay as one sample of the stage table, after its first read."""
 
     name = "graph"
 
@@ -248,11 +268,20 @@ class GraphEngine:
         self.last_capture_s = g.capture_s
         g.load(raw)
         done = g.static["done"]
+        traced = tracing.enabled()
+        replayed = False
         for _ in range(_n_chunks(max_ticks, chunk)):
             if bool(done.all()):
                 break
+            if traced and not replayed and g.untraced:
+                # the read above waited for the graph's latest replay,
+                # made with tracing off: its stage events are a sample
+                tracing.TRACER.sample(g.stages)
             for _ in range(int(chunk) // ips):
                 g.replay()
+            replayed = True
+        if replayed:
+            g.untraced = not traced
         return type(state).from_raw(g.state())
 
 

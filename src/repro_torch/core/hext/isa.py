@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.hext import csr as C
 from repro_torch.core.hext import decode as D
 from repro_torch.core.hext import tlb as TLB
+from repro_torch.core.hext import tracing
 from repro_torch.core.hext import translate as X
 from repro_torch.core.hext.bits import (INT_MIN, lsr, sext, uge, ult,
                                         word_deposit, word_extract,
@@ -622,7 +623,7 @@ def execute_uop(state, uop: D.MicroOp, rv1, rv2, q: MemQuery,
                     csrs[:, C.R_MTIME])])
     new_tlb = s["tlb"]
     if data_fill is not False:
-        with torch.profiler.record_function("hext.data_walk"):
+        with tracing.span("hext.data_walk"):
             fill = mem_ok & walked
             if isinstance(data_fill, torch.Tensor):
                 fill = fill & data_fill

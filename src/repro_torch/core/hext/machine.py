@@ -26,6 +26,13 @@ Either way a gate that stays shut yields the same neutral record
 (:func:`zero_xr`, ``isa.neutral_sys``, the untouched CSR bank), so the two
 forms are bit-identical by construction.
 
+The stages run under :mod:`.tracing` spans: ``hext.interrupts``,
+``hext.fetch`` (``hext.fetch_walk``: the gated walk and the TLB fill),
+``hext.execute`` (``hext.data_walk`` with its fill, ``hext.system``) and
+``hext.retire`` (``hext.trap``, ``hext.retire.store``).  Inside a graph
+capture each records a pair of timing events into the graph; eagerly,
+while a profiler records, each is a host span.
+
 State is a raw dict of tensors with a leading hart dimension B (the
 reference's ``_make_state`` keys); ``sim.HartState`` wraps it.
 """
@@ -41,6 +48,7 @@ from repro_torch.core.hext import decode as D
 from repro_torch.core.hext import isa
 from repro_torch.core.hext import tlb as TLB
 from repro_torch.core.hext import translate as X
+from repro_torch.core.hext import tracing
 from repro_torch.core.hext import trap as TR
 from repro_torch.core.hext.bits import (device_const, lsr, s64, uge,
                                         word_index)
@@ -146,10 +154,10 @@ def _gated(need, gates: str, span: str, branch, neutral):
     neutral)`` → ``(open, result)``.  ``"host"``: ``open`` is a Python bool
     read from the card and only the chosen side runs; ``"device"``: both
     sides run and ``open`` is a 0-d device bool that selects between them.
-    The branch runs under the profiler span ``span``
-    (``tools/profile_hext`` reads its kernels)."""
+    The branch runs under the tracing span ``span`` (inside a captured
+    tick, its stage of the stage table)."""
     def run_branch():
-        with torch.profiler.record_function(span):
+        with tracing.span(span):
             return branch()
 
     if gates == "host":
@@ -195,7 +203,7 @@ def fetch(state: Dict, csrs1, m_run, gates: str = "host"):
     # no walk has nothing to fill: the host gate skips it, and under the
     # device gate the all-false mask keeps the old TLB
     if walk_f is not False:
-        with torch.profiler.record_function("hext.fetch_walk"):
+        with tracing.span("hext.fetch_walk"):
             fill = m_run & ~fetch_fault & walked
             tlb1 = TLB.select(fill, isa.tlb_fill(
                 {"tlb": state["tlb"], "csrs": csrs1, "priv": priv0,
@@ -299,8 +307,10 @@ def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
         wb_go, eo.wb, _gather(regs, eo.rd))[:, None])
     st_go = m_ok & eo.mem_commit
     mem = state["mem"]
-    out["mem"] = mem.scatter(1, eo.mem_idx[:, None], torch.where(
-        st_go, eo.mem_word, _gather(mem, eo.mem_idx))[:, None])
+    word = torch.where(st_go, eo.mem_word, _gather(mem, eo.mem_idx))
+    # out of place: one copy of the whole memory a tick
+    with tracing.span("hext.retire.store"):
+        out["mem"] = mem.scatter(1, eo.mem_idx[:, None], word[:, None])
     out["tlb"] = TLB.select(m_ok, eo.tlb, tlb1)
 
     out["console"] = state["console"] + (m_ok & eo.console_inc).long()
@@ -336,21 +346,26 @@ def step_batched(state: Dict, gates: str = "host") -> Dict:
         raise ValueError(f"gates must be one of {GATES}, got {gates!r}")
     frozen = state["done"]
 
-    # ---- 0. virtual CLINT tick (frozen harts keep their old csrs) --------
-    csrs1 = _advance_timers(state["csrs"])
+    with tracing.span("hext.interrupts"):
+        # ---- 0. virtual CLINT tick (frozen harts keep their old csrs) ----
+        csrs1 = _advance_timers(state["csrs"])
 
-    # ---- 1. CheckInterrupts (paper Fig 2) --------------------------------
-    take, icause = TR.pending_interrupt(csrs1, state["priv"], state["virt"])
-    # halted harts wake on any pending+locally-enabled interrupt (WFI
-    # resumes on (mip & mie) != 0 regardless of global enables)
-    wake = (csrs1[:, C.R_MIP] & csrs1[:, C.R_MIE]) != 0
-    idle = state["halted"] & ~take & ~wake
-    m_run = ~frozen & ~take & ~idle
-    m_int = ~frozen & take
+        # ---- 1. CheckInterrupts (paper Fig 2) ----------------------------
+        take, icause = TR.pending_interrupt(csrs1, state["priv"],
+                                            state["virt"])
+        # halted harts wake on any pending+locally-enabled interrupt (WFI
+        # resumes on (mip & mie) != 0 regardless of global enables)
+        wake = (csrs1[:, C.R_MIP] & csrs1[:, C.R_MIE]) != 0
+        idle = state["halted"] & ~take & ~wake
+        m_run = ~frozen & ~take & ~idle
+        m_int = ~frozen & take
 
     # ---- 2..4. fetch → decode+execute → retire ----------------------------
-    instr, fetch_fault, f_fetch, tlb1, walked_f = fetch(state, csrs1, m_run,
-                                                        gates)
-    eo = execute(state, csrs1, tlb1, instr, m_run & ~fetch_fault, gates)
-    return retire(state, csrs1, tlb1, eo, f_fetch, walked_f,
-                  (frozen, take, icause, m_run, m_int), gates)
+    with tracing.span("hext.fetch"):
+        instr, fetch_fault, f_fetch, tlb1, walked_f = fetch(
+            state, csrs1, m_run, gates)
+    with tracing.span("hext.execute"):
+        eo = execute(state, csrs1, tlb1, instr, m_run & ~fetch_fault, gates)
+    with tracing.span("hext.retire"):
+        return retire(state, csrs1, tlb1, eo, f_fetch, walked_f,
+                      (frozen, take, icause, m_run, m_int), gates)

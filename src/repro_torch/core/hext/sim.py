@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.hext import engine as _engine
 from repro_torch.core.hext import machine as _machine
 from repro_torch.core.hext import programs
+from repro_torch.core.hext import tracing
 from repro_torch.device import resolve
 
 MASK64 = (1 << 64) - 1
@@ -753,7 +754,8 @@ class Fleet:
         keep the fleet's shapes (batch, mem_words), dtypes and device, so
         a graph engine's captured graph is reused.  ``state`` is a batch
         of one with the fleet's per-hart shapes; a state on another device
-        is moved onto the fleet's."""
+        is moved onto the fleet's.  Traced as ``hext.fleet.replace_hart``:
+        host ms, the device ms of its clones and the bytes cloned."""
         if not (0 <= i < len(self._specs)):
             raise ValueError(f"hart {i} out of range")
         if state.batch != 1:
@@ -767,15 +769,17 @@ class Fleet:
                 f"{want} (lanes must keep the compiled shape)")
         dev = self._harts.device
 
-        def splice(b, s):
-            if isinstance(b, dict):
-                return {k: splice(b[k], s[k]) for k in b}
-            out = b.clone()
-            out[i] = s[0].to(device=dev, dtype=b.dtype)
-            return out
+        with tracing.span("hext.fleet.replace_hart", device=dev) as sp:
+            def splice(b, s):
+                if isinstance(b, dict):
+                    return {k: splice(b[k], s[k]) for k in b}
+                out = b.clone()
+                out[i] = s[0].to(device=dev, dtype=b.dtype)
+                sp.nbytes += out.nbytes
+                return out
 
-        self._harts = HartState.from_raw(
-            splice(self._harts.to_raw(), state.to_raw()))
+            self._harts = HartState.from_raw(
+                splice(self._harts.to_raw(), state.to_raw()))
         if spec is not None:
             self._specs[i] = spec
         self._generation += 1
@@ -818,11 +822,13 @@ class Fleet:
 
     def counters(self) -> List[Counters]:
         """Per-hart :class:`Counters` on the host, in fleet order (one
-        device→host copy for the whole batch)."""
-        host = {k: getattr(self._harts.counters, k).cpu()
-                for k in _COUNTER_KEYS}
-        return [Counters(**{k: v[i] for k, v in host.items()})
-                for i in range(len(self))]
+        device→host copy for the whole batch).  Traced as
+        ``hext.fleet.counters`` (host ms)."""
+        with tracing.span("hext.fleet.counters"):
+            host = {k: getattr(self._harts.counters, k).cpu()
+                    for k in _COUNTER_KEYS}
+            return [Counters(**{k: v[i] for k, v in host.items()})
+                    for i in range(len(self))]
 
     def _preempt_entry(self, i: int, spec: HartSpec,
                        c: Counters) -> Dict[str, Any]:

@@ -26,6 +26,7 @@ def test_port_has_modules():
                 "core/hext/engine.py", "core/hext/checkpoint.py",
                 "core/hext/oracle.py", "core/hext/torture.py",
                 "core/hext/policies.py", "core/hext/service.py",
+                "core/hext/tracing.py",
                 "kernels/pagewalk/kernel.py", "indexing.py",
                 "core/vmem/page_table.py", "core/vmem/allocator.py",
                 "core/vmem/kvcache.py", "kernels/paged_attention/ref.py",

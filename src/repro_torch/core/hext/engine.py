@@ -158,33 +158,40 @@ def _clone(raw: Dict) -> Dict:
 
 
 def _copy_into(dst: Dict, src: Dict) -> None:
+    """Copy every leaf of ``src`` into ``dst``'s, skipping a leaf that
+    already is ``dst``'s tensor (the in-place store's memory)."""
     for k, v in src.items():
         if isinstance(v, dict):
             _copy_into(dst[k], v)
-        else:
+        elif v is not dst[k]:
             dst[k].copy_(v)
 
 
-def _ticks(raw: Dict, n: int) -> Dict:
+def _ticks(raw: Dict, n: int, store: str = "copy") -> Dict:
     for _ in range(n):
-        raw = _machine.step_batched(raw, gates="device")
+        raw = _machine.step_batched(raw, gates="device", store=store)
     return raw
 
 
 def _tick_body(static: Dict, ips: int) -> None:
-    """What a graph captures: ``ips`` device-gated ticks of ``static`` and
-    the copy of the new state back into it, under the stage spans."""
+    """What a graph captures: ``ips`` device-gated ticks of ``static``,
+    each storing into ``static["mem"]`` in place (the next tick reads it
+    there), and the copy of the other new leaves back into ``static``,
+    under the stage spans."""
     with tracing.span("hext.tick"):
-        new = _ticks(static, ips)
+        new = _ticks(static, ips, store="inplace")
         with tracing.span("hext.graph.copy_back"):
             _copy_into(static, new)
 
 
 class CapturedTicks:
     """``ips`` device-gated ticks captured as one CUDA graph over the
-    static state buffers ``static``; the captured ticks end by copying the
-    new state into those buffers, so each :meth:`replay` advances them by
-    ``ips`` ticks.  ``capture_s`` is the wall time of warm-up + capture.
+    static state buffers ``static``: each tick stores into
+    ``static["mem"]`` in place, and the captured ticks end by copying the
+    other new leaves into their buffers, so each :meth:`replay` advances
+    them by ``ips`` ticks.  The warm-up tick before the capture stores out
+    of place, so it leaves ``static`` as it was.  ``capture_s`` is the
+    wall time of warm-up + capture.
 
     The tick's stage spans (``hext.tick`` over the whole body, its
     stages, ``hext.graph.copy_back``) record timing events into the graph
@@ -201,7 +208,8 @@ class CapturedTicks:
             with torch.cuda.stream(side):
                 # warm-up: builds the lazily cached device constants
                 # (bits.device_const, csr/decode tables, trap priorities)
-                # off the capture, where a host→device copy is not allowed
+                # off the capture, where a host→device copy is not allowed;
+                # out of place, so ``static`` does not advance
                 _ticks(self.static, 1)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
@@ -215,7 +223,7 @@ class CapturedTicks:
         self.capture_s = time.perf_counter() - t0
 
     def load(self, raw: Dict) -> None:
-        """Copy a state into the static buffers."""
+        """Copy a state into the static buffers, memory included."""
         _copy_into(self.static, raw)
 
     def replay(self) -> None:

@@ -12,6 +12,18 @@ The per-tick pipeline is the reference's, staged the same way:
                interrupt / idle / fault / ok); register writeback and the
                store are single conditional scatters.
 
+The store comes in two forms, chosen by ``step_batched(store=)``:
+
+* ``"copy"`` — out of place: the tick returns a new memory tensor and the
+  caller's state is left as it was (every engine's tick but the graph's);
+* ``"inplace"`` — the word a hart stores (or, for a hart that stores
+  nothing, the word already there) is scattered into ``state["mem"]``
+  itself, and the result's ``mem`` is that same tensor.  Every read of
+  memory in the tick (fetch, the walks, loads, AMOs) is a gather made
+  before the store, so the result is the same bit for bit.  Only the
+  captured tick uses it, on the static buffers its graph owns
+  (``engine.CapturedTicks``).
+
 The reference's four batch-level ``lax.cond`` gates (fetch walk, data
 walk, SYSTEM, trap) come in two forms, chosen by ``step_batched(gates=)``:
 
@@ -56,6 +68,7 @@ from repro_torch.core.hext.bits import (device_const, lsr, s64, uge,
 DEFAULT_MEM_WORDS = 1 << 15          # 256 KiB per hart
 
 GATES = ("host", "device")
+STORES = ("copy", "inplace")
 
 COUNTER_KEYS = ("instret", "instret_virt", "pagefaults", "walks", "ticks",
                 "timer_irqs", "ctx_switches")
@@ -262,9 +275,11 @@ _PF_CAUSES = (C.EXC_IPAGE_FAULT, C.EXC_LPAGE_FAULT, C.EXC_SPAGE_FAULT,
 
 
 def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
-           masks, gates: str = "host"):
+           masks, gates: str = "host", store: str = "copy"):
     """Stage 4: apply outcome-class commit masks per field.  Register
-    writeback and the store are single conditional scatters."""
+    writeback and the store are single conditional scatters; ``store``
+    says whether the store writes a new memory or ``state["mem"]``
+    itself (module docstring)."""
     frozen, take, icause, m_run, m_int = masks
     pc0, priv0, virt0 = state["pc"], state["priv"], state["virt"]
 
@@ -308,9 +323,11 @@ def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
     st_go = m_ok & eo.mem_commit
     mem = state["mem"]
     word = torch.where(st_go, eo.mem_word, _gather(mem, eo.mem_idx))
-    # out of place: one copy of the whole memory a tick
+    # "copy": out of place, one copy of the whole memory a tick;
+    # "inplace": one word a hart, written into the caller's memory
+    scatter = mem.scatter_ if store == "inplace" else mem.scatter
     with tracing.span("hext.retire.store"):
-        out["mem"] = mem.scatter(1, eo.mem_idx[:, None], word[:, None])
+        out["mem"] = scatter(1, eo.mem_idx[:, None], word[:, None])
     out["tlb"] = TLB.select(m_ok, eo.tlb, tlb1)
 
     out["console"] = state["console"] + (m_ok & eo.console_inc).long()
@@ -337,13 +354,17 @@ def retire(state: Dict, csrs1, tlb1, eo: isa.ExecOut, f_fetch, walked_f,
     return out
 
 
-def step_batched(state: Dict, gates: str = "host") -> Dict:
+def step_batched(state: Dict, gates: str = "host",
+                 store: str = "copy") -> Dict:
     """One architectural tick for a (B, ...) hart batch — the fused
     fetch → decode → execute → retire pipeline.  ``gates`` picks the form
-    of the four batch-level gates (module docstring); the result is the
-    same bit for bit."""
+    of the four batch-level gates and ``store`` that of the memory store
+    (module docstring); the result is the same bit for bit.  With the
+    default ``store="copy"`` the input is never written."""
     if gates not in GATES:
         raise ValueError(f"gates must be one of {GATES}, got {gates!r}")
+    if store not in STORES:
+        raise ValueError(f"store must be one of {STORES}, got {store!r}")
     frozen = state["done"]
 
     with tracing.span("hext.interrupts"):
@@ -368,4 +389,4 @@ def step_batched(state: Dict, gates: str = "host") -> Dict:
         eo = execute(state, csrs1, tlb1, instr, m_run & ~fetch_fault, gates)
     with tracing.span("hext.retire"):
         return retire(state, csrs1, tlb1, eo, f_fetch, walked_f,
-                      (frozen, take, icause, m_run, m_int), gates)
+                      (frozen, take, icause, m_run, m_int), gates, store)

@@ -5,8 +5,9 @@ other ``test_torch_*`` files; these hold the card against the CPU on the
 same seeded inputs (integer semantics of shifts, wrap-around and division
 on CUDA), the CUDA ``pagewalk`` and ``paged_attention`` kernels against
 their plain versions, and the hext graph engine (device gates, one CUDA
-graph) against the eager engine, with a CPU snapshot restored onto the
-card; and the fleet operations on the graph engine (a 32-case torture
+graph, whose in-place store leaks nothing from one run into the next)
+against the eager engine, with a CPU snapshot restored onto the card;
+and the fleet operations on the graph engine (a 32-case torture
 corpus against the oracle, a migration, ``replace_hart`` with no new
 graph, and the service's long-workload park/resume and N=3 shed cases);
 and the MoE block and a reduced MoE LM on the card against the CPU; and
@@ -878,6 +879,41 @@ def test_graph_engine_matches_eager_engine(cuda, ips):
     for i in range(4):
         assert E.diff_arrays(held, i, again.harts.to_numpy(), i) == []
         assert E.diff_states(again.harts, eager.harts, i, i) == [], i
+
+
+@pytest.mark.parametrize("ips", [1, 8])
+def test_graph_engine_in_place_store_leaks_nothing(cuda, ips):
+    """The captured tick stores into the graph's static memory in place.
+    Two fresh states of one shape run one after the other on one engine:
+    each equals an eager run of its own, so neither the warm-up tick nor
+    the first run's stores reach the second, and a run leaves its input's
+    memory as it was."""
+    eng = E.GraphEngine(instrs_per_step=ips)
+    first = _four_harts(cuda, eng)
+    inputs = first.harts.unwrap()
+    held = inputs.mem.clone()
+    first.run(512, chunk=512)
+    assert torch.equal(inputs.mem, held)
+    assert not torch.equal(first.harts.mem, held)      # the harts stored
+    eager = _four_harts(cuda, "eager").run(512, chunk=512)
+    for i in range(4):
+        assert E.diff_states(first.harts, eager.harts, i, i) == [], i
+    wls = [next(w for w in programs.WORKLOADS if w.name == n)
+           for n in ("crc32", "stringsearch")]
+
+    def other(engine):
+        return Fleet.boot(wls * 2, guest=[False, False, True, True],
+                          device=cuda, engine=engine)
+
+    second = other(eng)
+    inputs = second.harts.unwrap()
+    held = inputs.mem.clone()
+    second.run(512, chunk=512)
+    assert eng.n_graphs == 1
+    assert torch.equal(inputs.mem, held)
+    want = other("eager").run(512, chunk=512)
+    for i in range(4):
+        assert E.diff_states(second.harts, want.harts, i, i) == [], i
 
 
 def test_graph_engine_raises_on_cpu_state(cuda):

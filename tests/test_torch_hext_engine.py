@@ -12,7 +12,11 @@ reference's default chunk.
 (c) ``instrs_per_step`` 2 and 8 equal 1, and ``_check_ips`` rejects 3;
 (d) a ``fleet.harts`` view taken before a run raises after it;
 (e) the default chunk is the reference's 4096, so ``run(100)`` of sha
-    guest ends done at the golden's 1,649 ticks.
+    guest ends done at the golden's 1,649 ticks;
+(f) ``store="inplace"`` equals the default ``store="copy"`` leaf by leaf
+    on every tick of native, guest and 4-guest preemptive batches, writes
+    the input's own memory, while the default leaves its input as it was;
+    the graph's captured body stores into its static memory in place.
 
 The graph engine itself needs the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 4).
@@ -126,6 +130,12 @@ def test_step_batched_rejects_unknown_gates():
         machine.step_batched(st, gates="sometimes")
 
 
+def test_step_batched_rejects_unknown_store():
+    st = HartState.fresh(64, device="cpu").to_raw()
+    with pytest.raises(ValueError, match="store"):
+        machine.step_batched(st, store="sometimes")
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -229,3 +239,70 @@ def test_run_on_device_leaves_the_input_alone():
     for k, v in _leaves(before):
         assert np.array_equal(v, dict(_leaves(after))[k]), k
     assert int(out.counters.ticks[0]) == 32
+
+
+# ---------------------------------------------------------------------------
+# the in-place store of the captured tick
+# ---------------------------------------------------------------------------
+
+STORE_TICKS = 300
+
+
+def _store_batch(kind):
+    """Two harts of short workloads: native, guest, or 4-guest preemptive
+    pods whose 100-tick slices switch inside the window."""
+    sha, crc, ss, fft = (_wl(n) for n in ("sha", "crc32", "stringsearch",
+                                          "fft"))
+    if kind == "preempt4":
+        states = [HartState.boot_preemptive(*g, timeslice=100, device="cpu")
+                  for g in ((sha, crc, ss, fft), (fft, ss, crc, sha))]
+    else:
+        states = [HartState.boot(w, guest=kind == "guest", device="cpu")
+                  for w in (sha, crc)]
+    return HartState.stack(states).to_raw()
+
+
+@pytest.mark.parametrize("kind", ["native", "guest", "preempt4"])
+def test_inplace_store_matches_copy_every_tick(kind):
+    copy = _store_batch(kind)
+    boot_mem = copy["mem"].clone()
+    inplace = engine._clone(copy)
+    mem = inplace["mem"]
+    with torch.no_grad():
+        for t in range(1, STORE_TICKS + 1):
+            held = engine._clone(copy)
+            new = machine.step_batched(copy, gates="device")
+            assert _differing(held, copy) == [], f"tick {t}: input written"
+            assert new["mem"] is not copy["mem"]
+            inplace = machine.step_batched(inplace, gates="device",
+                                           store="inplace")
+            assert inplace["mem"] is mem, t
+            bad = _differing(new, inplace)
+            assert not bad, f"tick {t}: leaves {bad} differ"
+            copy = new
+    assert not torch.equal(copy["mem"], boot_mem)     # the harts stored
+    if kind == "preempt4":
+        assert int(copy["timer_irqs"].min()) > 0
+
+
+def test_tick_body_stores_into_static_memory(monkeypatch):
+    raw = _store_batch("guest")
+    held = engine._clone(raw)
+    static = engine._clone(raw)
+    mem = static["mem"]
+    real, wrote = machine.step_batched, []
+
+    def spy(state, **kw):
+        out = real(state, **kw)
+        wrote.append(out["mem"] is mem)
+        return out
+
+    monkeypatch.setattr(machine, "step_batched", spy)
+    with torch.no_grad():
+        engine._tick_body(static, 2)
+        assert wrote == [True, True]
+        want = engine._ticks(raw, 2)
+    assert wrote[2:] == [False, False]
+    assert static["mem"] is mem
+    assert _differing(static, want) == []
+    assert _differing(raw, held) == []

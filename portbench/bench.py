@@ -5,13 +5,17 @@ metric sits in a file of its own, found by the name the cell gives:
 
 * ``portbench/configs/<config>.json`` — the fleet (the cell's ``config``;
   ``BENCHMARK.json`` names the file);
-* ``portbench/mixes/<traffic>.json`` — the job mix;
+* ``portbench/mixes/<traffic>.json`` — the job mix, whose ``kind``
+  names the module of its jobs;
+* ``portbench/kinds/<kind>.py`` — a kind of job: the jobs' names, images
+  and goldens (:mod:`portbench.kinds`), with any frozen generator it
+  needs under ``portbench/reference/``;
 * ``portbench/metrics/<metric>.py`` — one reader per metric, a function
   ``read(record) -> float | None`` (``None``: nothing to read, and the
   metric is left out of the result line).
 
-So a later change adds a cell, a mix or a metric by adding files and
-entries, and edits none of these modules.
+So a later change adds a cell, a configuration, a mix, a kind of job or a
+metric by adding files and entries, and edits none of these modules.
 """
 from __future__ import annotations
 

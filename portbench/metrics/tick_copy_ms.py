@@ -1,6 +1,7 @@
-"""Device ms a tick of the two whole-memory copies: the out-of-place
-store scatter (``hext.retire.store``) and the copy back into the graph's
-static buffers (``hext.graph.copy_back``)."""
+"""Device ms a tick of the tick's two stores into the graph's static
+buffers: the retire's in-place scatter of one memory word a hart
+(``hext.retire.store``) and the copy back of every leaf but the memory
+(``hext.graph.copy_back``)."""
 from portbench import spans
 
 

@@ -3,9 +3,10 @@
 A fleet of harts (``repro_torch.core.hext.sim.Fleet``, on the graph
 engine on the card) runs a backlog of jobs.  Between two chunks of
 ``poll_ticks`` ticks the sweep reads the fleet's counters
-(``Fleet.counters``), checks the exit code of every job that finished,
-and splices the next job of the backlog into each freed lane
-(``Fleet.replace_hart``), so no new graph is captured.
+(``Fleet.counters``), checks the exit code of every job that finished
+against its kind's golden where the kind has one, and splices the next
+job of the backlog into each freed lane (``Fleet.replace_hart``), so no
+new graph is captured.
 
 The sweep keeps its own books, never the program's: the kind and the
 age (ticks since it was spliced in) of each lane's job, the instructions
@@ -39,9 +40,10 @@ class Sweep:
         self.mem_words = int(config["mem_words"])
         self.phases: Dict[str, float] = {}
         t0 = time.perf_counter()
-        kinds = traffic.kinds(mix, config)
-        self.images = {k: traffic.image(k, config) for k in kinds}
-        self.goldens = {k: traffic.golden(k) for k in kinds}
+        mod = traffic.module(mix)
+        kinds = mod.kinds(mix, config)
+        self.images = {k: traffic.image(mod, k, config) for k in kinds}
+        self.goldens = {k: mod.golden(k) for k in kinds}
         first, self.backlog = traffic.plan(kinds, int(config["harts"]),
                                            seed)
         self.kind: List[str] = first
@@ -97,8 +99,9 @@ class Sweep:
 
     def control(self) -> int:
         """Harvest and refill: read the counters, check each finished
-        job's exit code and splice the next job into its lane.  Returns
-        the number of jobs that finished."""
+        job's exit code against its kind's golden, if it has one, and
+        splice the next job into its lane.  Returns the number of jobs
+        that finished."""
         t0 = time.perf_counter()
         cs = self.fleet.counters()
         now = np.fromiter((int(c.instret) for c in cs), np.int64, len(cs))
@@ -109,7 +112,9 @@ class Sweep:
                 continue
             kind = self.kind[i]
             counters = c.to_dict()
-            self.bad_exit += counters["exit_code"] != self.goldens[kind]
+            gold = self.goldens[kind]
+            if gold is not None:
+                self.bad_exit += counters["exit_code"] != gold
             self.harvest.append((kind, int(self.age[i]), counters))
             nxt = next(self.backlog)
             self.fleet.replace_hart(i, self._job(nxt))

@@ -27,12 +27,11 @@ def _loaded(code: str) -> set:
 
 
 def test_the_harness_loads_neither_jax_nor_the_jax_package():
-    metrics = [p.stem for p in (PORTBENCH / "metrics").glob("*.py")
-               if p.stem != "__init__"]
     code = "; ".join(
         ["import portbench.run, portbench.sweep, portbench.trace",
          "import portbench.control, portbench.check"]
-        + [f"import portbench.metrics.{m}" for m in metrics])
+        + [f"import portbench.{d}.{m}" for d, m in _modules("metrics")]
+        + [f"import portbench.{d}.{m}" for d, m in _modules("kinds")])
     names = _loaded(code)
     assert "repro_torch" in names
     assert not names & FORBIDDEN
@@ -41,9 +40,16 @@ def test_the_harness_loads_neither_jax_nor_the_jax_package():
     assert "repro" not in names
 
 
+def _modules(folder: str) -> list:
+    return [(folder, p.stem) for p in (PORTBENCH / folder).glob("*.py")
+            if p.stem != "__init__"]
+
+
 def test_the_reference_imports_nothing_of_the_port():
-    names = _loaded("import portbench.check, portbench.roofline, "
-                    "portbench.traffic")
+    # the kinds build the images that both sides are handed
+    names = _loaded("; ".join(
+        ["import portbench.check, portbench.roofline, portbench.traffic"]
+        + [f"import portbench.{d}.{m}" for d, m in _modules("kinds")]))
     assert not names & (FORBIDDEN | {"repro_torch", "torch"})
     for path in (PORTBENCH / "reference").glob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):

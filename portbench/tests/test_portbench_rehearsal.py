@@ -57,7 +57,7 @@ def test_frozen_constants_equal_the_ports():
 
 def test_plan_gives_every_seed_the_same_jobs_in_another_order():
     mix = bench.mix("mibench-guest")
-    kinds = traffic.kinds(mix, {"guests_per_hart": 1})
+    kinds = traffic.module(mix).kinds(mix, {"guests_per_hart": 1})
     assert len(kinds) == 9
     first, backlog = traffic.plan(kinds, 36, 2 ** 31 + 5)
     assert sorted(first) == sorted(kinds * 4)
@@ -73,9 +73,14 @@ def test_every_cell_names_files_that_exist():
     for cell in b["workloads"]:
         config = bench.config(b, cell["config"])
         assert config["chips"] == cell["chips"] == 1
-        kinds = traffic.kinds(bench.mix(cell["traffic"]), config)
+        mix = bench.mix(cell["traffic"])
+        # the mix's kind module, portbench/kinds/<kind>.py
+        mod = traffic.module(mix)
+        assert all(callable(getattr(mod, f))
+                   for f in ("kinds", "image", "golden"))
+        kinds = mod.kinds(mix, config)
         assert config["harts"] % len(kinds) == 0
-        img = traffic.image(kinds[0], config)
+        img = traffic.image(mod, kinds[0], config)
         assert img.shape == (config["mem_words"],)
     for m in b["end_to_end"] + b["per_layer"]:
         assert callable(bench.reader(m["name"]))
